@@ -5,23 +5,38 @@
 
 Phases, each printing its wall seconds:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of every CUDA kernel in rt3d_torch/csrc (one nvcc call);
-  3. each kernel (K1-K4) against its plain PyTorch version at the main
-     path's shapes, with kernel, plain and library-call times (CUDA events
+  2. the build of every CUDA kernel in rt3d_torch/csrc (one nvcc per
+     source, all started together, then one link);
+  3. each kernel (K1-K5) against its plain PyTorch version at the main
+     paths' shapes, with kernel, plain and library-call times (CUDA events
      around a CUDA graph of 5 calls, median of 20 replays after 3 warm-up
-     calls) and each kernel's bound;
+     calls) and each kernel's bound; K5 over each slot of K3's input equals
+     K3's rows bit for bit;
   4. the main path: `build_pipeline` on the default config (two HD720
      cameras, yolo11x-seg with the committed weights, ByteTrack, 5 mm
      voxels) stepping 8 synthetic frames, every kernel's launch counter
      checked per step;
   5. the same frames with every kernel swapped for its plain version
-     (`build_pipeline(plain_kernels=True)`), held against phase 4.
+     (`build_pipeline(plain_kernels=True)`), held against phase 4;
+  6. the CPU-variant preset (`reference_2cam_cpu_config`: 12x12 mask
+     erosion, Morton-window SOR of the fused workspace cloud, 1 cm voxels,
+     conf 0.25 on five classes), 8 HD720 frames of yolo11x, counters checked
+     per step, the workspace SOR shown to drop points, then its plain run
+     compared as in phase 5;
+  7. K5 through its entry points: `sor_inlier_mask` and `sor_filter` on
+     each present fused slot of phase 6's last frame equal
+     `sor_inlier_mask_slots` (K3) on all of them, and K5's counter rises by
+     one per call; then the per-slot fallback above 4096 points (20 slots
+     of 16384 rows, 4 present) against one batched windowed pass, timed;
+  8. the 1-cam preset (`reference_1cam_config`, yolo11l-seg), 4 frames,
+     counters checked per step, then its plain run compared.
 
 Fails (non-zero exit, no result line) when no CUDA device is present, when
 the port is missing beside this file, or when any check fails. The last
 line of standard output is the result object.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -31,6 +46,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 8
+FRAMES_1CAM = 4
 WARMUP_FRAMES = 2
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12   # H100 SXM, f32 outside the tensor cores
@@ -46,25 +62,34 @@ def phase(name: str, t: float) -> None:
     log(f"[phase] {name}: {time.perf_counter() - t:.2f} s")
 
 
-def time_ms(torch, fn, calls: int = 5, replays: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, calls: int = 5, replays: int = 20, warmup: int = 3,
+            graph: bool = True) -> float:
     """Device ms per call of `fn`: `calls` back-to-back calls captured in a
     CUDA graph, replayed `replays` times between CUDA events after `warmup`
     calls; the median replay over `calls`. Replaying the graph keeps host
-    launch overhead out of the kernel's time."""
+    launch overhead out of the kernel's time. With ``graph=False`` (for a
+    function that reads back to the host) the calls run directly between
+    the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+
+    def run():
         for _ in range(calls):
             fn()
-    graph.replay()
+
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        g.replay()
+        run = g.replay
     times = []
     for _ in range(replays):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        graph.replay()
+        run()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
@@ -113,7 +138,16 @@ def kernel_inputs(torch, gen):
     nr = 3000
     r[:nr] = torch.randint(0, 40, (nr, 3), device=dev, generator=gen).float() * 0.005
     rv = torch.arange(20480, device=dev) < nr
-    return dict(k1=k1, k2=k2, w2=w2, pts=pts, valid=valid, q=q, r=r.contiguous(), rv=rv)
+
+    def cloud(n):  # one fused-object slot, 30 % of its rows invalid
+        p = torch.randint(-20, 20, (n, 3), device=dev, generator=gen).float() * 0.005
+        p = (p + torch.randn((n, 3), device=dev, generator=gen) * 0.001 + 0.3).contiguous()
+        return p, torch.rand(n, device=dev, generator=gen) >= 0.3
+
+    c5, c5v = cloud(2048)
+    c5b, c5bv = cloud(3000)
+    return dict(k1=k1, k2=k2, w2=w2, pts=pts, valid=valid, q=q, r=r.contiguous(), rv=rv,
+                c5=c5, c5v=c5v, c5b=c5b, c5bv=c5bv)
 
 
 def check_kernels(torch, gen):
@@ -163,7 +197,7 @@ def check_kernels(torch, gen):
     rel = ((mean - pmean).abs() / pmean.abs().clamp_min(1e-12))[ok]
     check(bool((rel <= 1e-5).all()), f"K3 mean off by {float(rel.max()):.3g} relative")
     s, cap, _ = pts.shape
-    nq = int(valid.sum())
+    pairs = int((valid.sum(-1).long() ** 2).sum())  # valid pairs within each slot
 
     def k3_library():
         d = torch.cdist(pts, pts)
@@ -176,7 +210,7 @@ def check_kernels(torch, gen):
         ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k)),
         plain_ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k, plain=True)),
         library_ms=time_ms(torch, k3_library),
-        bound=bound(s * cap * (12 + 1 + 4 + 1), nq * cap * 10)))
+        bound=bound(s * cap * (12 + 1 + 4 + 1), pairs * 10)))
 
     # K4: keep/drop at 0.06 m equal; d2 within 1e-6 where <= threshold^2
     q, r, rv = x["q"], x["r"], x["rv"]
@@ -197,18 +231,48 @@ def check_kernels(torch, gen):
         library_ms=time_ms(torch, lambda: torch.cdist(q, rvalid).pow(2).amin(1)),
         bound=bound(q.numel() * 4 + q.shape[0] * 4 + r.numel() * 4 + r.shape[0],
                     q.shape[0] * nr * 9)))
+
+    # K5: bit for bit against its plain version (2048 rows, and 3000, not a
+    # multiple of its block), and against K3's row for each slot
+    c, cv = x["c5"], x["c5v"]
+    mean5, sat5 = sor.sor_knn_mean(c, cv, k)
+    pmean5, psat5 = sor.sor_knn_mean(c, cv, k, plain=True)
+    check(torch.equal(mean5, pmean5) and torch.equal(sat5, psat5),
+          "K5 sor_knn differs from its plain version at 2048 rows")
+    b, bv = x["c5b"], x["c5bv"]
+    check(all(torch.equal(u, v) for u, v in zip(sor.sor_knn_mean(b, bv, k),
+                                                 sor.sor_knn_mean(b, bv, k, plain=True))),
+          "K5 sor_knn differs from its plain version at 3000 rows")
+    for i in range(s):
+        m_i, s_i = sor.sor_knn_mean(pts[i], valid[i], k)
+        check(torch.equal(m_i, mean[i]) and torch.equal(s_i, sat[i]),
+              f"K5 over slot {i} differs from K3's row")
+    n5 = c.shape[0]
+
+    def k5_library():
+        d = torch.cdist(c, c)
+        return torch.topk(d, k, dim=-1, largest=False).values.sum(-1) / (k - 1)
+
+    rows.append(dict(
+        name="sor_knn", source="rt3d_torch/csrc/sor_knn.cu",
+        replaces="rt3d/geometry/pallas_ops.py:148",
+        max_abs_err=float((mean5 - pmean5).abs().max()),
+        ms=time_ms(torch, lambda: sor.sor_knn_mean(c, cv, k)),
+        plain_ms=time_ms(torch, lambda: sor.sor_knn_mean(c, cv, k, plain=True)),
+        library_ms=time_ms(torch, k5_library),
+        bound=bound(n5 * (12 + 1 + 4 + 1), int(cv.sum()) ** 2 * 10)))
     kernels.reset_launches()
     return rows
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the main path
+# Phases 4-8: the presets' paths
 # ---------------------------------------------------------------------------
 
 
 def run_path(torch, pipe, frames, per_step):
     """Step all frames in order; returns (per-frame event ms, wall s, host
-    copies of the outputs, launches per kernel)."""
+    copies of the outputs, launches per kernel, last frame's outputs)."""
     from rt3d_torch import kernels
 
     state, calib = pipe.init_state(), pipe.calib()
@@ -232,7 +296,7 @@ def run_path(torch, pipe, frames, per_step):
             check(rose == n, f"frame {i}: {name} launched {rose} times, expected {n}")
         outs.append(host_outputs(out))
     wall = time.perf_counter() - t_wall
-    return ms, wall, outs, dict(kernels.LAUNCHES)
+    return ms, wall, outs, dict(kernels.LAUNCHES), out
 
 
 def host_outputs(out):
@@ -251,6 +315,157 @@ def host_outputs(out):
         overflow=out.overflow.item())
 
 
+def run_preset(torch, np, name, n_frames, per_step):
+    """Phases of one preset: step `n_frames` synthetic HD720 frames with
+    every launch counter checked per step and the outputs checked, then the
+    same frames with every kernel's plain version, compared. Returns the
+    run's numbers, its pipeline, frames and last outputs."""
+    from rt3d_torch.pipeline.presets import synthetic_preset
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    pipe, src = synthetic_preset(name, n_frames)
+    frames = []
+    for i in range(n_frames):
+        pkt = src.get(i)
+        frames.append((torch.from_numpy(pkt.rgb).cuda(), torch.from_numpy(pkt.depth).cuda()))
+    torch.cuda.synchronize()
+    log(f"{name}: pipeline built and {n_frames} frames staged: "
+        f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ms, wall, outs, launches, last = run_path(torch, pipe, frames, per_step)
+    peak = torch.cuda.max_memory_allocated()
+    total_dets = 0
+    for i, o in enumerate(outs):
+        for key in ("boxes", "scores", "pc_points", "obj_points", "flat_points", "ws_points"):
+            check(bool(np.isfinite(o[key]).all()), f"{name} frame {i}: non-finite {key}")
+        check(isinstance(o["overflow"], int), "overflow is not an integer")
+        n_det = int(o["det_valid"].sum())
+        total_dets += n_det
+        log(f"  frame {i}: {ms[i]:.2f} ms device clock, detections {n_det} "
+            f"(classes {o['classes'][o['det_valid']].tolist()}), track ids "
+            f"{o['track_ids'][o['det_valid']].tolist()}, fused objects "
+            f"{int(o['obj_present'].sum())}, object points {int(o['flat_valid'].sum())}, "
+            f"workspace kept {int(o['ws_valid'].sum())}, overflow {o['overflow']}")
+    check(total_dets > 0, f"{name}: no detection in any frame")
+    steady = ms[WARMUP_FRAMES:]
+    fps = (n_frames - WARMUP_FRAMES) / wall
+    log(f"  steady frames: device ms mean {statistics.mean(steady):.2f} "
+        f"median {statistics.median(steady):.2f}; wall fps {fps:.2f}; "
+        f"peak memory {peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
+        f"preset was built); launches {launches}")
+    phase(f"{name} path", t)
+
+    t = time.perf_counter()
+    plain, _ = synthetic_preset(name, n_frames, plain_kernels=True)
+    pms, _, pouts, _, _ = run_path(torch, plain, frames, {n: 0 for n in per_step})
+    exact = ("classes", "det_valid", "track_ids", "pc_points", "pc_valid", "obj_points",
+             "obj_valid", "obj_present", "flat_points", "flat_valid", "ws_points", "ws_valid")
+    for i, (o, p) in enumerate(zip(outs, pouts)):
+        for key in exact:
+            check(np.array_equal(o[key], p[key]),
+                  f"{name} frame {i}: {key} differs from the plain run")
+        for key in ("boxes", "scores"):
+            check(np.allclose(o[key], p[key], rtol=0, atol=1e-4),
+                  f"{name} frame {i}: {key} differ from the plain run by more than 1e-4")
+        check(o["overflow"] == p["overflow"], f"{name} frame {i}: overflow differs")
+    log(f"  plain run: steady device ms mean {statistics.mean(pms[WARMUP_FRAMES:]):.2f}; "
+        f"identical keys, ids and keep masks over {n_frames} frames")
+    phase(f"{name} plain path", t)
+    return dict(launches=launches, steady_ms=statistics.mean(steady), fps=fps,
+                peak_mib=peak / 2**20, plain_ms=statistics.mean(pms[WARMUP_FRAMES:]),
+                pipe=pipe, frames=frames, outs=outs, last=last)
+
+
+def check_workspace_sor(torch, run):
+    """The CPU-variant preset's workspace SOR drops points: per frame, the
+    fused workspace cloud through `Pipeline.workspace_sor` keeps fewer
+    points than it receives, and the step's workspace lies within them."""
+    from rt3d_torch.geometry.ops import PointBuffer
+
+    pipe, calib = run["pipe"], run["pipe"].calib()
+    with torch.no_grad():
+        for i, ((_, depth), o) in enumerate(zip(run["frames"], run["outs"])):
+            ws, _ = pipe.workspace_clouds(depth, calib)
+            ws = PointBuffer(ws.points.reshape(-1, 3), ws.valid.reshape(-1))
+            keep = pipe.workspace_sor(ws).valid
+            got, kept = int(ws.valid.sum()), int(keep.sum())
+            log(f"  frame {i}: workspace SOR receives {got} points, keeps {kept}")
+            check(0 < kept < got, f"frame {i}: workspace SOR kept {kept} of {got}")
+            check(not (o["ws_valid"] & ~keep.cpu().numpy()).any(),
+                  f"frame {i}: the step kept a point its workspace SOR dropped")
+
+
+def check_sor_entry(torch, objs):
+    """K5 through `sor_inlier_mask` and `sor_filter` on every present fused
+    slot, against `sor_inlier_mask_slots` (K3) over all slots; returns K5's
+    launches, which must be one per call."""
+    from rt3d_torch import kernels
+    from rt3d_torch.geometry import sor
+    from rt3d_torch.geometry.ops import PointBuffer
+
+    present = objs.present.nonzero().flatten().tolist()
+    check(len(present) > 0, "no fused object in the preset's last frame")
+    kernels.reset_launches()
+    slots = sor.sor_inlier_mask_slots(objs.points, objs.valid)
+    for s in present:
+        keep = sor.sor_inlier_mask(objs.points[s], objs.valid[s])
+        kept = sor.sor_filter(PointBuffer(objs.points[s], objs.valid[s])).valid
+        check(torch.equal(keep, slots[s]) and torch.equal(kept, keep),
+              f"slot {s}: sor_inlier_mask / sor_filter differ from sor_inlier_mask_slots")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(launches["sor_knn"] == 2 * len(present),
+          f"K5 launched {launches['sor_knn']} times for {2 * len(present)} calls")
+    check(launches["sor_knn_slots"] == 1, "K3 not launched once")
+    mean3, sat3 = sor.sor_knn_mean_slots(objs.points, objs.valid, 20)
+    for s in present:
+        m, st = sor.sor_knn_mean(objs.points[s], objs.valid[s], 20)
+        check(torch.equal(m, mean3[s]) and torch.equal(st, sat3[s]),
+              f"slot {s}: K5 differs from K3's row")
+    log(f"  {len(present)} present slots of {objs.present.shape[0]}: keep masks equal "
+        f"K3's, K5 equals K3's rows; launches {launches}")
+    return launches
+
+
+def check_slot_fallback(torch, gen):
+    """The per-slot fallback of `sor_inlier_mask_slots` above 4096 points at
+    the 1 mm stretch shape (20 slots of 16384 rows, 4 present): it runs the
+    Morton-window SOR on the present slots only. Its keep mask must equal one
+    batched windowed pass over every slot; both are timed (without a CUDA
+    graph: the fallback reads the present slots back) with their peak
+    memory."""
+    from rt3d_torch.geometry import sor
+
+    dev, s, cap = "cuda", 20, 16384
+    n_valid = torch.tensor([16384, 9000, 5000, 2500] + [0] * (s - 4), device=dev)
+    pts = torch.randint(-60, 60, (s, cap, 3), device=dev, generator=gen).float() * 0.001
+    pts = (pts + torch.rand((s, 1, 3), device=dev, generator=gen) * 0.6
+           + torch.randn((s, cap, 3), device=dev, generator=gen) * 0.0002).contiguous()
+    valid = torch.arange(cap, device=dev)[None, :] < n_valid[:, None]
+    forms = {"present slots": lambda: sor.sor_inlier_mask_slots(pts, valid),
+             "batched": lambda: sor.sor_inlier_mask_windowed(pts, valid)}
+    keeps, out = {}, {}
+    for name, fn in forms.items():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        keeps[name] = fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        out[name] = (time_ms(torch, fn, graph=False), peak)
+    keep = keeps["present slots"]
+    check(torch.equal(keep, keeps["batched"]),
+          "slot fallback: present-slot keep mask differs from the batched pass")
+    kept, got = int(keep.sum()), int(valid.sum())
+    check(0 < kept < got, f"slot fallback kept {kept} of {got}")
+    log(f"  slot fallback, {s} slots of {cap}, 4 present, keeps {kept} of {got}: "
+        + "; ".join(f"{name} {ms:.4f} ms, peak {peak:.1f} MiB above the inputs"
+                    for name, (ms, peak) in out.items()))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -259,10 +474,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, ROOT)
     import rt3d_torch  # noqa: F401  (fails when the port is not beside this file)
-    from rt3d_torch.config import Config, with_cameras
-    from rt3d_torch.io import SyntheticSource
     from rt3d_torch.kernels.build import build, load_library
-    from rt3d_torch.pipeline.step import build_pipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -299,69 +511,52 @@ def main() -> int:
             f"max_abs_err {r['max_abs_err']}")
     phase("kernels", t)
 
-    # 4. the main path
-    t = time.perf_counter()
-    src = SyntheticSource(num_cameras=2, num_frames=FRAMES, hw=(720, 1280),
-                          num_objects=2, seed=0)
-    cfg = with_cameras(Config(), src.cameras())
-    weights = os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz")
-    pipe = build_pipeline(cfg, weights=weights, device="cuda")
-    frames = []
-    for i in range(FRAMES):
-        pkt = src.get(i)
-        frames.append((torch.from_numpy(pkt.rgb).cuda(), torch.from_numpy(pkt.depth).cuda()))
-    torch.cuda.synchronize()
-    log(f"pipeline built and {FRAMES} frames staged: {time.perf_counter() - t:.2f} s")
-    per_step = {"window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1, "min_sqdist": 1}
-    torch.cuda.reset_peak_memory_stats()
-    ms, wall, outs, launches = run_path(torch, pipe, frames, per_step)
-    peak = torch.cuda.max_memory_allocated()
-    total_dets = 0
-    for i, o in enumerate(outs):
-        for key in ("boxes", "scores", "pc_points", "obj_points", "flat_points", "ws_points"):
-            check(bool(np.isfinite(o[key]).all()), f"frame {i}: non-finite {key}")
-        check(isinstance(o["overflow"], int), "overflow is not an integer")
-        n_det = int(o["det_valid"].sum())
-        total_dets += n_det
-        log(f"  frame {i}: {ms[i]:.2f} ms device clock, detections {n_det} "
-            f"(classes {o['classes'][o['det_valid']].tolist()}), track ids "
-            f"{o['track_ids'][o['det_valid']].tolist()}, fused objects "
-            f"{int(o['obj_present'].sum())}, object points {int(o['flat_valid'].sum())}, "
-            f"workspace kept {int(o['ws_valid'].sum())}, overflow {o['overflow']}")
-    check(total_dets > 0, "no detection in any frame")
-    steady = ms[WARMUP_FRAMES:]
-    fps = (FRAMES - WARMUP_FRAMES) / wall
-    log(f"  steady frames: device ms mean {statistics.mean(steady):.2f} "
-        f"median {statistics.median(steady):.2f}; wall fps {fps:.2f}; "
-        f"peak memory {peak / 2**20:.1f} MiB; launches {launches}")
-    phase("main path", t)
+    # 4-5. the default main path, then its plain run
+    none = {"window_dedupe": 0, "window_prev_or": 0, "sor_knn_slots": 0,
+            "min_sqdist": 0, "sor_knn": 0}
+    runs = {"2cam": run_preset(torch, np, "2cam", FRAMES, {
+        **none, "window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1,
+        "min_sqdist": 1})}
 
-    # 5. the same frames with every kernel's plain version
-    t = time.perf_counter()
-    plain = build_pipeline(cfg, weights=weights, device="cuda", plain_kernels=True)
-    pms, _, pouts, plaunches = run_path(torch, plain, frames,
-                                        {name: 0 for name in per_step})
-    exact = ("classes", "det_valid", "track_ids", "pc_points", "pc_valid", "obj_points",
-             "obj_valid", "obj_present", "flat_points", "flat_valid", "ws_points", "ws_valid")
-    for i, (o, p) in enumerate(zip(outs, pouts)):
-        for key in exact:
-            check(np.array_equal(o[key], p[key]), f"frame {i}: {key} differs from the plain run")
-        for key in ("boxes", "scores"):
-            check(np.allclose(o[key], p[key], rtol=0, atol=1e-4),
-                  f"frame {i}: {key} differ from the plain run by more than 1e-4")
-        check(o["overflow"] == p["overflow"], f"frame {i}: overflow differs")
-    log(f"  plain run: steady device ms mean {statistics.mean(pms[WARMUP_FRAMES:]):.2f}; "
-        f"identical keys, ids and keep masks over {FRAMES} frames")
-    phase("plain path", t)
+    drop = ("pipe", "frames", "outs", "last")
+    for key in drop:
+        runs["2cam"].pop(key)
 
+    # 6. the CPU-variant preset
+    runs["2cam_cpu"] = run_preset(torch, np, "2cam_cpu", FRAMES, {
+        **none, "window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1,
+        "min_sqdist": 1})
+    t = time.perf_counter()
+    check_workspace_sor(torch, runs["2cam_cpu"])
+    phase("2cam_cpu workspace SOR", t)
+
+    # 7. K5 through its entry points
+    t = time.perf_counter()
+    sor_entry = check_sor_entry(torch, runs["2cam_cpu"]["last"].objects)
+    check_slot_fallback(torch, gen)
+    phase("sor entry points", t)
+    for key in drop:
+        runs["2cam_cpu"].pop(key)
+
+    # 8. the 1-cam preset
+    runs["1cam"] = run_preset(torch, np, "1cam", FRAMES_1CAM, {
+        **none, "window_dedupe": 1, "window_prev_or": 1, "min_sqdist": 1})
+
+    launches = {name: dict(r["launches"]) for name, r in runs.items()}
+    launches["sor_entry"] = sor_entry
     out_rows = []
     for r in rows:
         b_ms, b_by = r.pop("bound")
+        path = "sor_entry" if r["name"] == "sor_knn" else "2cam"
         out_rows.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
-            launches=launches[r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            kernel_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-            library_ms=r["library_ms"], launches_per_step=per_step[r["name"]]))
+            launches=launches[path][r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=r["library_ms"],
+            launches_by_path={p: n[r["name"]] for p, n in launches.items()}))
+    log(json.dumps({"presets": {name: {k: r[k] for k in ("steady_ms", "fps", "peak_mib",
+                                                          "plain_ms")}
+                                for name, r in runs.items()}}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-// Slot-batched k-nearest-neighbour mean distance for statistical outlier
-// removal (kernel K3).
+// k-nearest-neighbour mean distance for statistical outlier removal:
+// kernel K3 over object slots and kernel K5 over one cloud.
 //
-// Replaces `_sor_knn_kernel` as launched by `sor_knn_mean_pallas_slots`
-// (rt3d/geometry/pallas_ops.py). For every valid point of slot s: the sum of
+// Both replace the Pallas `_sor_knn_kernel` (rt3d/geometry/pallas_ops.py):
+// K3 as launched by `sor_knn_mean_pallas_slots`, K5 as launched by
+// `sor_knn_mean_pallas`. For every valid point of slot s: the sum of
 // sqrt(min(d2, 1e30)) over its k smallest squared distances to the points of
 // its own slot (itself included, at distance 0), divided by max(k - 1, 1),
 // plus `saturated` = the k-th smallest d2 >= (1e5)^2 / 4, i.e. the slot ran
@@ -15,10 +16,12 @@
 // rt3d_torch/geometry/sor.py. Invalid query rows return (3.4e38, true):
 // the caller masks them by `valid`.
 //
-// Bound on the H100: operations. Per valid query the kernel visits all cap
-// points of its slot (about 9 flops for d2 plus a compare), so 20 slots of
-// 2048 points cost up to 20 * 2048 * 2048 * 10 operations against 33 MB of
-// input. Design: one thread per query, 128 queries per block, the slot's
+// Bound on the H100: operations. The statistic needs every valid pair of a
+// slot (about 9 flops for d2 plus a compare), so a slot of n valid points
+// costs n * n * 10 operations: up to 20 * 2048 * 2048 * 10 for 20 full
+// slots of 2048, against 33 MB of input. This kernel visits all cap points
+// per valid query, padding included. Design: one thread per query, 128
+// queries per block (K5 is the same launch over one slot), the slot's
 // points and their squared norms staged once per block in shared memory
 // (16 bytes a point, 32 KB at cap 2048), the k smallest kept sorted in
 // registers by a branch-free insertion that runs only when a candidate beats
@@ -40,11 +43,10 @@ __device__ __forceinline__ float sq_norm(float x, float y, float z) {
                    __fmul_rn(z, z));
 }
 
-__global__ void sor_knn_slots_kernel(const float* __restrict__ pts,
-                                     const uint8_t* __restrict__ valid,
-                                     float* __restrict__ mean,
-                                     uint8_t* __restrict__ sat, int cap,
-                                     int k) {
+__global__ void sor_knn_kernel(const float* __restrict__ pts,
+                               const uint8_t* __restrict__ valid,
+                               float* __restrict__ mean,
+                               uint8_t* __restrict__ sat, int cap, int k) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = smem + cap;
@@ -112,22 +114,34 @@ __global__ void sor_knn_slots_kernel(const float* __restrict__ pts,
   sat[base + qi] = kth >= kFar * kFar * 0.25f ? 1 : 0;
 }
 
-}  // namespace
-
-extern "C" int rt3d_sor_knn_slots(const float* pts, const uint8_t* valid,
-                                  float* mean, uint8_t* sat, int slots,
-                                  int cap, int k, void* stream) {
+int launch_sor_knn(const float* pts, const uint8_t* valid, float* mean,
+                   uint8_t* sat, int slots, int cap, int k, void* stream) {
   if (k < 1 || k > kMaxK || k > cap) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(cap) * 4 * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sor_knn_slots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sor_knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((cap + kThreads - 1) / kThreads, slots);
-  sor_knn_slots_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(pts, valid, mean,
-                                                              sat, cap, k);
+  sor_knn_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      pts, valid, mean, sat, cap, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K3: (slots, cap) clouds.
+extern "C" int rt3d_sor_knn_slots(const float* pts, const uint8_t* valid,
+                                  float* mean, uint8_t* sat, int slots,
+                                  int cap, int k, void* stream) {
+  return launch_sor_knn(pts, valid, mean, sat, slots, cap, k, stream);
+}
+
+// K5: one cloud of n points, K3's launch over one slot.
+extern "C" int rt3d_sor_knn(const float* pts, const uint8_t* valid,
+                            float* mean, uint8_t* sat, int n, int k,
+                            void* stream) {
+  return launch_sor_knn(pts, valid, mean, sat, 1, n, k, stream);
 }

@@ -16,6 +16,7 @@ LAUNCHES: dict[str, int] = {
     "window_prev_or": 0,   # K2
     "sor_knn_slots": 0,    # K3
     "min_sqdist": 0,       # K4
+    "sor_knn": 0,          # K5
 }
 
 

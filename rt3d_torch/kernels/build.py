@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of `rt3d_torch/csrc/`.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, which is loaded with `ctypes`. No source
-includes a PyTorch header, so a build from clean takes seconds. The library
-lands in ``build/rt3d_torch/`` at the repository root, keyed by a hash of
-the sources and flags, so an unchanged tree reuses it.
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
+for ``sm_90a`` into an object; one more links them into a shared library
+with a plain C interface, which is loaded with `ctypes`. No source includes
+a PyTorch header, so a build from clean takes seconds. The library lands in
+``build/rt3d_torch/`` at the repository root, keyed by a hash of the
+sources and flags, so an unchanged tree reuses it.
 
 Nothing here runs at import time: the first CUDA tensor that reaches a
 kernel wrapper calls `load_library`.
@@ -20,13 +21,14 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "rt3d_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +38,7 @@ _SIGNATURES = {
     "rt3d_window_dedupe": (_P, _P, _I, _I, _I, _I, ctypes.c_int32, _P),
     "rt3d_window_prev_or": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_int32, _P),
     "rt3d_sor_knn_slots": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rt3d_sor_knn": (_P, _P, _P, _P, _I, _I, _P),
     "rt3d_min_sqdist": (_P, _P, _P, _P, _I, _I, _P),
 }
 
@@ -63,6 +66,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"librt3d_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}")
+    return proc.stdout
+
+
 @functools.cache
 def build() -> tuple[Path, float, str]:
     """Compile the kernels unless a library for these sources exists.
@@ -72,18 +82,18 @@ def build() -> tuple[Path, float, str]:
         log = out.with_suffix(".log")
         return out, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    log = proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{src.stem}.o") for src in sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources(), objs)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            log = "".join(pool.map(_run, cmds))
+        lib = os.path.join(work, "lib.so")
+        log += _run([nvcc, "-shared", "-o", lib, *objs])
+        secs = time.perf_counter() - t0
+        os.replace(lib, out)
     out.with_suffix(".log").write_text(log)
     return out, secs, log
 

@@ -186,6 +186,25 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, coeffs: torch.Tensor,
         valid=padded(sel_scores > 0.0))
 
 
+def suppress_center_duplicates(det: Detections, dist_px: float) -> Detections:
+    """Post-NMS same-class centre-distance suppression: slots in order, a
+    live slot kills every later live slot of its class whose box centre lies
+    within `dist_px`; only survivors suppress. The loop over the D slots
+    stays on the device (no value is read back)."""
+    d = det.valid.shape[0]
+    cx = (det.boxes[:, 0] + det.boxes[:, 2]) * 0.5
+    cy = (det.boxes[:, 1] + det.boxes[:, 3]) * 0.5
+    d2 = (cx[:, None] - cx[None, :]) ** 2 + (cy[:, None] - cy[None, :]) ** 2
+    same = det.classes[:, None] == det.classes[None, :]
+    order = torch.arange(d, device=det.valid.device)
+    later = order[None, :] > order[:, None]
+    conflict = (d2 <= scalar_like(dist_px, d2) ** 2) & same & later
+    alive = det.valid
+    for i in range(d):
+        alive = alive & ~(alive[i] & conflict[i])
+    return det.replace(valid=alive, scores=torch.where(alive, det.scores, 0.0))
+
+
 def boxes_to_original(boxes: torch.Tensor, meta: LetterboxMeta) -> torch.Tensor:
     """Letterboxed-input xyxy -> original-image xyxy, clipped."""
     sh, sw = meta.src_hw

@@ -1,16 +1,18 @@
 """The fused per-frame pipeline step (port of `rt3d/pipeline/step.py`).
 
 Stages, in order: letterbox preprocess, YOLO11-seg forward, DFL decode and
-fixed-shape NMS, ByteTrack (one tracker per camera), retina masks,
-per-object clouds (packed mask-voxel dedupe, kernel K2), workspace clouds
-(grid voxel dedupe, K1), centroid fusion with slot-batched SOR (K3), and
-min-distance subtraction (K4).
+fixed-shape NMS (then, when `dedupe_center_px > 0`, centre-distance
+suppression), ByteTrack (one tracker per camera), retina masks (eroded when
+`erode_kernel > 0`), per-object clouds (packed mask-voxel dedupe, kernel
+K2), workspace clouds (grid voxel dedupe, K1), centroid fusion with
+slot-batched SOR (K3), the Morton-window SOR of the fused workspace cloud
+when `workspace_sor` is on, and min-distance subtraction (K4).
 
 Inputs and outputs keep the JAX package's layouts: rgb (C, H, W, 3) uint8
 BGR and depth (C, H, W) f32 on the pipeline's device, per-camera results
 with a leading camera axis. Branches the JAX package has but this port does
-not yet (BoT-SORT and DeepSORT, ReID, GMC, mask erosion, workspace SOR,
-accumulation) raise `NotImplementedError` naming their ROADMAP item.
+not yet (BoT-SORT and DeepSORT, ReID, GMC, accumulation) raise
+`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,14 +25,16 @@ import torch
 
 from rt3d_torch.config import Config
 from rt3d_torch.geometry.fusion import ObjectSet, flatten_objects, fuse_centroid
+from rt3d_torch.geometry.image import erode_mask
 from rt3d_torch.geometry.ops import (
     PointBuffer, aabb_mask, backproject_depth_grid, rigid_transform, scalar_like,
     strided_grid_downsample, voxel_downsample_grid, voxel_downsample_masks,
 )
+from rt3d_torch.geometry.sor import sor_inlier_mask_windowed
 from rt3d_torch.geometry.subtract import subtract_min_dist
 from rt3d_torch.models.postprocess import (
     Detections, assemble_masks_retina, boxes_to_original, decode_predictions,
-    letterbox_params, nms_fixed, preprocess_frame,
+    letterbox_params, nms_fixed, preprocess_frame, suppress_center_duplicates,
 )
 from rt3d_torch.models.yolo import (
     YoloSeg, cast_for_inference, init_random, load_weights,
@@ -129,9 +133,6 @@ class Pipeline:
         """Forward + decode + NMS. Returns (detections with boxes in original
         pixels, camera axis leading; protos (C, hp, wp, nm))."""
         p = self.cfg.model
-        if p.dedupe_center_px > 0:
-            raise NotImplementedError(
-                "post-NMS centre-distance suppression is ROADMAP item 11")
         meta = self._meta()
         with torch.no_grad():
             box_l, cls_l, coeff_l, protos = self.model(images)
@@ -144,7 +145,10 @@ class Pipeline:
             det = nms_fixed(b, s, c, conf_thresh=p.conf_thresh, iou_thresh=p.iou_thresh,
                             max_det=p.max_detections, pre_topk=p.nms_pre_topk,
                             class_mask=class_mask)
-            dets.append(det.replace(boxes=boxes_to_original(det.boxes, meta)))
+            det = det.replace(boxes=boxes_to_original(det.boxes, meta))
+            if p.dedupe_center_px > 0:
+                det = suppress_center_duplicates(det, p.dedupe_center_px)
+            dets.append(det)
         return Detections.stack(dets), protos
 
     def track(self, state: PipelineState, det: Detections
@@ -162,14 +166,15 @@ class Pipeline:
         return PipelineState(trackers=tuple(new)), torch.stack(ids)
 
     def masks(self, protos: torch.Tensor, det: Detections) -> torch.Tensor:
-        """(C, D, H, W) bool full-resolution instance masks."""
-        if self.cfg.pipeline.erode_kernel > 0:
-            raise NotImplementedError("mask erosion is ROADMAP item 11")
+        """(C, D, H, W) bool full-resolution instance masks, eroded by a
+        k x k element when `erode_kernel` k > 0."""
         meta = self._meta()
         rdt = _DTYPES[self.cfg.model.mask_resize_dtype]
-        return torch.stack([
+        out = torch.stack([
             assemble_masks_retina(protos[c], det.coeffs[c], det.boxes[c], meta, rdt)
             for c in range(protos.shape[0])])
+        k = self.cfg.pipeline.erode_kernel
+        return erode_mask(out, k) if k > 0 else out
 
     def dense_robot_points(self, depth: torch.Tensor, calib: CameraCalib, c: int):
         """Camera c's full-resolution points in the robot frame (H, W, 3)
@@ -206,10 +211,9 @@ class Pipeline:
         """Strided cloud -> robot frame -> AABB crop -> voxel dedupe (K1),
         per camera."""
         p = self.cfg.pipeline
-        if p.workspace_accumulate or p.workspace_sor:
+        if p.workspace_accumulate:
             raise NotImplementedError(
-                "workspace accumulation (ROADMAP item 12) and workspace SOR "
-                "(ROADMAP item 11) are not ported yet")
+                "workspace accumulation is ROADMAP item 12")
         s = p.workspace_stride
         depth_s = strided_grid_downsample(depth, s)
         pts_out, valid_out, ovfs = [], [], []
@@ -242,6 +246,17 @@ class Pipeline:
         flat, ovf = flatten_objects(fused, capacity=p.max_points_fused_flat)
         return fused, flat, ovf
 
+    def workspace_sor(self, ws_all: PointBuffer) -> PointBuffer:
+        """The fused (C * cap, 3) workspace cloud, SOR-filtered by the
+        Morton-window form when `workspace_sor` is on (the exact form
+        cannot hold workspace-scale clouds), else as it came."""
+        p = self.cfg.pipeline
+        if not p.workspace_sor:
+            return ws_all
+        keep = sor_inlier_mask_windowed(ws_all.points, ws_all.valid,
+                                        p.sor_nb_neighbors, p.sor_std_ratio)
+        return PointBuffer(points=ws_all.points, valid=keep)
+
     def subtract(self, workspace: PointBuffer, objects_flat: PointBuffer) -> PointBuffer:
         return subtract_min_dist(workspace, objects_flat,
                                  self.cfg.pipeline.subtraction_threshold,
@@ -263,7 +278,7 @@ class Pipeline:
             fused, flat, flat_ovf = self.fuse(per_cam)
             ws_all = PointBuffer(points=ws.points.reshape(-1, 3),
                                  valid=ws.valid.reshape(-1))
-            ws_out = self.subtract(ws_all, flat)
+            ws_out = self.subtract(self.workspace_sor(ws_all), flat)
             overflow = obj_ovf.sum(dtype=torch.int32) + ws_ovf.sum(dtype=torch.int32) \
                 + flat_ovf.to(torch.int32)
         return state, FrameOutputs(

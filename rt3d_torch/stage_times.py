@@ -1,9 +1,11 @@
 """Where the port's step spends its time on the card.
 
-    python3 -m rt3d_torch.stage_times [--frames N]
+    python3 -m rt3d_torch.stage_times [--preset {2cam,2cam_cpu,1cam}] [--frames N]
 
-Builds the main path as `chip_smoke.py` does (default config, two HD720
-synthetic cameras, yolo11x-seg with the committed weights), warms up on two
+Builds a preset as `chip_smoke.py` does (`rt3d_torch.pipeline.presets`:
+`2cam`, the default config, two HD720 synthetic cameras, yolo11x-seg with
+the committed weights; `2cam_cpu`, the CPU-variant preset with mask erosion
+and workspace SOR; `1cam`, one camera with yolo11l-seg), warms up on two
 frames, then
 
 * times every stage of `Pipeline.step` on its own, with a synchronize
@@ -19,19 +21,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import statistics
 import subprocess
 import time
 
 import torch
 
-from rt3d_torch.config import Config, with_cameras
 from rt3d_torch.geometry.ops import PointBuffer
-from rt3d_torch.io import SyntheticSource
-from rt3d_torch.pipeline.step import build_pipeline
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from rt3d_torch.pipeline.presets import PRESETS, synthetic_preset
 
 
 def _staged_step(pipe, state, rgb, depth, calib, record):
@@ -46,12 +43,14 @@ def _staged_step(pipe, state, rgb, depth, calib, record):
     ws, _ = record("workspace_clouds", lambda: pipe.workspace_clouds(depth, calib))
     _, flat, _ = record("fuse", lambda: pipe.fuse(per_cam))
     ws_all = PointBuffer(ws.points.reshape(-1, 3), ws.valid.reshape(-1))
+    ws_all = record("workspace_sor", lambda: pipe.workspace_sor(ws_all))
     record("subtract", lambda: pipe.subtract(ws_all, flat))
     return state
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", choices=sorted(PRESETS), default="2cam")
     ap.add_argument("--frames", type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -60,10 +59,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
-    src = SyntheticSource(num_cameras=2, num_frames=args.frames, hw=(720, 1280),
-                          num_objects=2, seed=0)
-    cfg = with_cameras(Config(), src.cameras())
-    pipe = build_pipeline(cfg, weights=os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz"))
+    pipe, src = synthetic_preset(args.preset, args.frames)
     frames = [(torch.from_numpy(p.rgb).cuda(), torch.from_numpy(p.depth).cuda())
               for p in (src.get(i) for i in range(args.frames))]
     calib = pipe.calib()
@@ -111,6 +107,7 @@ def main() -> None:
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20), flush=True)
     result = {
         "card": smi,
+        "preset": args.preset,
         "stages": stages,
         "profiled_steps": len(steps),
         "profiled_wall_ms_per_step": prof_wall_ms / len(steps),

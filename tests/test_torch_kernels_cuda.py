@@ -70,3 +70,82 @@ def test_wrappers_reject_bad_tensors(gen):
     with pytest.raises(ValueError):
         sor.sor_knn_mean_slots(torch.zeros(1, 8, 3, device="cuda"),
                                torch.ones(1, 8, dtype=torch.bool, device="cuda"), 40)
+
+
+def _cloud(gen, n, invalid=0.3):
+    pts = (torch.randint(-30, 30, (n, 3), device="cuda", generator=gen).float() * 0.005
+           + torch.randn((n, 3), device="cuda", generator=gen) * 1e-3).contiguous()
+    return pts, torch.rand(n, device="cuda", generator=gen) >= invalid
+
+
+@pytest.mark.parametrize("n", [256, 3000, 4096])
+def test_sor_knn_cloud_equals_plain(gen, n):
+    """K5 equals its plain version bit for bit, one launch a call."""
+    pts, valid = _cloud(gen, n)
+    before = kernels.LAUNCHES["sor_knn"]
+    mean, sat = sor.sor_knn_mean(pts, valid, 20)
+    assert kernels.LAUNCHES["sor_knn"] == before + 1
+    pmean, psat = sor.sor_knn_mean(pts, valid, 20, plain=True)
+    assert torch.equal(sat, psat)
+    assert torch.equal(mean, pmean)
+
+
+def test_sor_knn_cloud_equals_slot_rows(gen):
+    """K5 over each slot's cloud gives K3's row for that slot bit for bit."""
+    s, cap = 6, 2048
+    pts = (torch.randint(-30, 30, (s, cap, 3), device="cuda", generator=gen).float() * 0.005
+           + torch.randn((s, cap, 3), device="cuda", generator=gen) * 1e-3).contiguous()
+    n = torch.tensor([2048, 1500, 300, 19, 1, 0], device="cuda")[:, None]
+    valid = torch.arange(cap, device="cuda")[None] < n
+    mean, sat = sor.sor_knn_mean_slots(pts, valid, 20)
+    for i in range(s):
+        m, st = sor.sor_knn_mean(pts[i], valid[i], 20)
+        assert torch.equal(m, mean[i]) and torch.equal(st, sat[i])
+
+
+def test_sor_entry_points_launch_k5(gen):
+    """`sor_inlier_mask` from 256 to 4096 rows launches K5 once and equals
+    its plain run; below 256 rows it launches nothing."""
+    pts, valid = _cloud(gen, 2048)
+    before = kernels.LAUNCHES["sor_knn"]
+    keep = sor.sor_inlier_mask(pts, valid)
+    assert kernels.LAUNCHES["sor_knn"] == before + 1
+    assert torch.equal(keep, sor.sor_inlier_mask(pts, valid, plain=True))
+    assert torch.equal(sor.sor_filter(ops.PointBuffer(pts, valid)).valid, keep)
+    small, sv = _cloud(gen, 200)
+    sor.sor_inlier_mask(small, sv)
+    assert kernels.LAUNCHES["sor_knn"] == before + 2
+
+
+def test_mask_ops_and_windowed_sor_match_cpu(gen):
+    """Erosion and dilation on the card equal the CPU's bit for bit; the
+    Morton-window SOR's keys equal and its keep mask equals the CPU's
+    outside a band of 1e-5 of the threshold (sums in another order)."""
+    from rt3d_torch.geometry import image
+
+    m = torch.rand((2, 4, 72, 128), device="cuda", generator=gen) < 0.8
+    for k in (3, 12):
+        assert torch.equal(image.erode_mask(m, k).cpu(), image.erode_mask(m.cpu(), k))
+        assert torch.equal(image.dilate_mask(m, k).cpu(), image.dilate_mask(m.cpu(), k))
+    pts, valid = _cloud(gen, 20000, invalid=0.2)
+    assert torch.equal(sor.morton_keys(pts, valid).cpu(), sor.morton_keys(pts.cpu(), valid.cpu()))
+    keep = sor.sor_inlier_mask_windowed(pts, valid).cpu()
+    ckeep = sor.sor_inlier_mask_windowed(pts.cpu(), valid.cpu())
+    mean, sat = sor._knn_mean_windowed(pts.cpu(), valid.cpu(), 20, 64)
+    ok = valid.cpu() & ~sat
+    thr = mean[ok].double().mean() + 1.5 * mean[ok].double().std()
+    outside = (mean.double() - thr).abs() > 1e-5 * thr
+    assert torch.equal(keep[outside], ckeep[outside])
+    assert 0 < keep.sum() < valid.sum()
+
+
+def test_sor_knn_rejects_bad_tensors(gen):
+    pts, valid = _cloud(gen, 300)
+    with pytest.raises(ValueError):
+        sor.sor_knn_mean(pts, valid, 40)
+    with pytest.raises(TypeError):
+        sor.sor_knn_mean(pts.double(), valid, 20)
+    with pytest.raises(ValueError):
+        sor.sor_knn_mean(pts.t().contiguous().t(), valid, 20)
+    with pytest.raises(ValueError):
+        sor.sor_knn_mean(pts, valid[:-1], 20)

@@ -51,20 +51,20 @@ def small_config(cameras) -> config.Config:
     return config.Config.from_dict(d)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    src = SyntheticSource(num_cameras=2, num_frames=FRAMES, hw=(H, W), num_objects=2)
-    cfg = small_config(src.cameras())
-    pipe = build_pipeline(cfg, weights=WEIGHTS, device="cpu")
+def run_both(cfg, weights, src, frames):
+    """Step the port and the JAX package (float32, op by op) over the same
+    `frames` of `src` with carried state. Returns (port pipeline, JAX
+    pipeline, port outputs, JAX outputs) per frame."""
+    pipe = build_pipeline(cfg, weights=weights, device="cpu")
     jcfg = jconfig.Config.from_dict(cfg.to_dict())
     jpipe = jbuild_pipeline(jcfg)
-    params = {k: jnp.asarray(v, jnp.float32) for k, v in load_params(WEIGHTS).items()}
+    params = {k: jnp.asarray(v, jnp.float32) for k, v in load_params(weights).items()}
     state, calib = pipe.init_state(), pipe.calib()
     jstate, jcalib = jpipe.init_state(), JCalib.from_config(jcfg)
     got, exp = [], []
     ycore.set_compute_dtype(jnp.float32)
     try:
-        for i in range(FRAMES):
+        for i in range(frames):
             pkt = src.get(i)
             state, out = pipe.step(state, torch.from_numpy(pkt.rgb),
                                    torch.from_numpy(pkt.depth), calib)
@@ -74,6 +74,25 @@ def runs():
             exp.append(jout)
     finally:
         ycore.set_compute_dtype(jnp.bfloat16)
+    return pipe, jpipe, got, exp
+
+
+def threshold_ties(out, thr):
+    """Workspace rows of a port output whose float64 squared distance to the
+    nearest object voxel lies within 1e-8 m^2 of thr^2."""
+    ws = N(out.workspace.points).astype(np.float64)
+    obj = N(out.objects_flat.points)[N(out.objects_flat.valid)].astype(np.float64)
+    if not len(obj):
+        return np.zeros(len(ws), bool)
+    d64 = ((ws[:, None, :] - obj[None]) ** 2).sum(-1).min(1)
+    return np.abs(d64 - thr * thr) < 1e-8
+
+
+@pytest.fixture(scope="module")
+def runs():
+    src = SyntheticSource(num_cameras=2, num_frames=FRAMES, hw=(H, W), num_objects=2)
+    cfg = small_config(src.cameras())
+    _, _, got, exp = run_both(cfg, WEIGHTS, src, FRAMES)
     return cfg, got, exp
 
 
@@ -131,28 +150,22 @@ def test_step_workspace_matches_jax(runs):
     thr = cfg.pipeline.subtraction_threshold
     for o, e in zip(got, exp):
         assert int(o.overflow) == int(e.overflow) > 0
-        ws, jws = N(o.workspace.points), N(e.workspace.points)
-        np.testing.assert_array_equal(ws, jws)
-        obj = N(o.objects_flat.points)[N(o.objects_flat.valid)].astype(np.float64)
-        d64 = ((ws[:, None, :].astype(np.float64) - obj[None]) ** 2).sum(-1).min(1)
-        tie = np.abs(d64 - thr * thr) < 1e-8
+        np.testing.assert_array_equal(N(o.workspace.points), N(e.workspace.points))
+        tie = threshold_ties(o, thr)
         keep, jkeep = N(o.workspace.valid), N(e.workspace.valid)
         np.testing.assert_array_equal(keep[~tie], jkeep[~tie])
         assert keep.sum() > 1000 and (keep != jkeep).sum() <= tie.sum()
 
 
-@pytest.mark.parametrize("change", ["erode", "workspace_sor", "accumulate", "botsort",
-                                    "dedupe_center"])
+@pytest.mark.parametrize("change", ["accumulate", "botsort"])
 def test_unported_branches_raise(change):
-    """Branches outside the slice raise instead of running something else."""
+    """Branches outside the ported slices raise instead of running
+    something else."""
     base = small_config(SyntheticSource(num_cameras=2, hw=(H, W)).cameras())
-    p, m, t = base.pipeline, base.model, base.tracker
+    p, t = base.pipeline, base.tracker
     cfg = {
-        "erode": dataclasses.replace(base, pipeline=dataclasses.replace(p, erode_kernel=3)),
-        "workspace_sor": dataclasses.replace(base, pipeline=dataclasses.replace(p, workspace_sor=True)),
         "accumulate": dataclasses.replace(base, pipeline=dataclasses.replace(p, workspace_accumulate=True)),
         "botsort": dataclasses.replace(base, tracker=dataclasses.replace(t, tracker_type="botsort")),
-        "dedupe_center": dataclasses.replace(base, model=dataclasses.replace(m, dedupe_center_px=24.0)),
     }[change]
     pipe = build_pipeline(cfg, device="cpu")
     src = SyntheticSource(num_cameras=2, num_frames=1, hw=(H, W))

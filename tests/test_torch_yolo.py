@@ -150,3 +150,30 @@ def test_boxes_and_retina_masks_match_jax(rng):
     diff = got != exp
     assert np.all(np.abs(prob[diff] - 0.5) < 1e-5)
     assert diff.sum() <= 3 and got.sum() > 100
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_suppress_center_duplicates_matches_jax(seed):
+    """Exact against the JAX package: boxes on a coarse grid so that centre
+    distances tie with the radius, forced same-class near-duplicates,
+    different-class neighbours at the same centre and invalid slots."""
+    rs = np.random.default_rng(seed)
+    d = 20
+    c = rs.integers(0, 6, (d, 2)).astype(np.float32) * 8.0 + 100.0
+    c[2] = 400.0  # apart from the grid: slot 2 survives, then kills slot 5
+    c[5], c[9] = c[2] + [3.0, 4.0], c[2]
+    half = rs.uniform(10, 30, (d, 2)).astype(np.float32)
+    boxes = np.concatenate([c - half, c + half], 1).astype(np.float32)
+    classes = rs.choice([39, 41], d).astype(np.int32)
+    classes[5], classes[9] = classes[2], 80 - classes[2]
+    valid = rs.uniform(size=d) < 0.85
+    valid[[2, 5, 9]] = True
+    scores = np.sort(rs.uniform(0.1, 1.0, d))[::-1].astype(np.float32)
+    coeffs = rs.normal(size=(d, 32)).astype(np.float32)
+    args = (boxes, scores, classes, coeffs, valid)
+    got = post.suppress_center_duplicates(post.Detections(*map(torch.from_numpy, args)), 8.0)
+    exp = jpost.suppress_center_duplicates(jpost.Detections(*map(jnp.asarray, args)), 8.0)
+    for f in ("boxes", "scores", "classes", "coeffs", "valid"):
+        np.testing.assert_array_equal(N(getattr(got, f)), N(getattr(exp, f)), err_msg=f)
+    keep = N(got.valid)
+    assert not keep[5] and keep[9] and keep.sum() < valid.sum()
