@@ -10,12 +10,13 @@ Phases, each printing its wall seconds:
   3. each kernel (K1-K5) against its plain PyTorch version at the main
      paths' shapes, with kernel, plain and library-call times (CUDA events
      around a CUDA graph of 5 calls, median of 20 replays after 3 warm-up
-     calls) and each kernel's bound; K5 over each slot of K3's input equals
-     K3's rows bit for bit;
+     calls) and each kernel's bound; K3 and K5 bit for bit on every row,
+     and K5 over each slot of K3's input equals K3's rows;
   4. the main path: `build_pipeline` on the default config (two HD720
      cameras, yolo11x-seg with the committed weights, ByteTrack, 5 mm
      voxels) stepping 8 synthetic frames, every kernel's launch counter
-     checked per step;
+     checked per step; then K3 on the step's own fused slots of the last
+     frame (bit for bit, timed);
   5. the same frames with every kernel swapped for its plain version
      (`build_pipeline(plain_kernels=True)`), held against phase 4;
   6. the CPU-variant preset (`reference_2cam_cpu_config`: 12x12 mask
@@ -29,7 +30,11 @@ Phases, each printing its wall seconds:
      one per call; then the per-slot fallback above 4096 points (20 slots
      of 16384 rows, 4 present) against one batched windowed pass, timed;
   8. the 1-cam preset (`reference_1cam_config`, yolo11l-seg), 4 frames,
-     counters checked per step, then its plain run compared.
+     counters checked per step, then its plain run compared;
+  9. every preset in float32 (TF32 off) over the frames of its JAX golden
+     (`tests/golden_torch/`, from `tools/make_torch_golden.py`), held
+     against it within the bands of `rt3d_torch/golden.py`; then its usual
+     bf16 step over the same frames, whose differences are printed only.
 
 Fails (non-zero exit, no result line) when no CUDA device is present, when
 the port is missing beside this file, or when any check fails. The last
@@ -188,14 +193,13 @@ def check_kernels(torch, gen):
         plain_ms=time_ms(torch, lambda: ops.window_prev_or(x["k2"], x["w2"], plain=True)),
         library_ms=None, bound=bound(12 * hw, 3 * 58 * hw)))
 
-    # K3: mean within 1e-5 relative, saturated equal (valid rows)
+    # K3: bit for bit against its plain version on every row (invalid rows
+    # included), as K5
     pts, valid = x["pts"], x["valid"]
     mean, sat = sor.sor_knn_mean_slots(pts, valid, k)
     pmean, psat = sor.sor_knn_mean_slots(pts, valid, k, plain=True)
-    check(torch.equal(sat[valid], psat[valid]), "K3 saturated flags differ")
-    ok = valid & ~sat
-    rel = ((mean - pmean).abs() / pmean.abs().clamp_min(1e-12))[ok]
-    check(bool((rel <= 1e-5).all()), f"K3 mean off by {float(rel.max()):.3g} relative")
+    check(torch.equal(mean, pmean) and torch.equal(sat, psat),
+          "K3 sor_knn_slots differs from its plain version")
     s, cap, _ = pts.shape
     pairs = int((valid.sum(-1).long() ** 2).sum())  # valid pairs within each slot
 
@@ -206,7 +210,7 @@ def check_kernels(torch, gen):
     rows.append(dict(
         name="sor_knn_slots", source="rt3d_torch/csrc/sor_knn.cu",
         replaces="rt3d/geometry/pallas_ops.py:148",
-        max_abs_err=float((mean - pmean).abs()[ok].max()),
+        max_abs_err=float((mean - pmean).abs().max()),
         ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k)),
         plain_ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k, plain=True)),
         library_ms=time_ms(torch, k3_library),
@@ -263,6 +267,95 @@ def check_kernels(torch, gen):
         bound=bound(n5 * (12 + 1 + 4 + 1), int(cv.sum()) ** 2 * 10)))
     kernels.reset_launches()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# K3 on the step's own slots
+# ---------------------------------------------------------------------------
+
+
+def step_slots(torch, run):
+    """K3's input in the 2cam step's last frame: the fusion's first
+    `max_detections` slots (camera 1's objects, each with its matched
+    camera-2 points behind it: the two-run layout), rebuilt from the frame's
+    per-camera objects without the SOR. The step's keep masks of the present
+    slots must follow from `sor_inlier_mask_slots` on them."""
+    from rt3d_torch.geometry import sor
+    from rt3d_torch.geometry.fusion import ObjectSet, fuse_centroid
+
+    pipe, out = run["pipe"], run["last"]
+    p, pc = pipe.cfg.pipeline, out.per_camera_objects
+    cams = [ObjectSet(pc.points[c], pc.valid[c], pc.class_id[c], pc.present[c],
+                      pc.track_id[c]) for c in range(2)]
+    fused = fuse_centroid(cams[0], cams[1], p.fusion_distance_threshold, apply_sor=False)
+    s1 = cams[0].num_slots
+    pts, valid = fused.points[:s1].contiguous(), fused.valid[:s1].contiguous()
+    keep = sor.sor_inlier_mask_slots(pts, valid, p.sor_nb_neighbors, p.sor_std_ratio)
+    present = out.objects.present[:s1]
+    check(torch.equal(keep[present], out.objects.valid[:s1][present]),
+          "K3 on the rebuilt slots does not give the step's keep masks")
+    return pts, valid
+
+
+def time_step_slots(torch, run, k=20):
+    """K3 on the 2cam step's slots: bit for bit against its plain version,
+    then timed beside its bound."""
+    from rt3d_torch.geometry import sor
+
+    pts, valid = step_slots(torch, run)
+    mean, sat = sor.sor_knn_mean_slots(pts, valid, k)
+    pmean, psat = sor.sor_knn_mean_slots(pts, valid, k, plain=True)
+    check(torch.equal(mean, pmean) and torch.equal(sat, psat),
+          "K3 on the step's slots differs from its plain version")
+    n = valid.sum(-1)
+    pairs = int((n.long() ** 2).sum())
+    return dict(
+        n_valid=[int(v) for v in n if v > 0], cap=pts.shape[1], slots=pts.shape[0],
+        ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k)),
+        plain_ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k, plain=True)),
+        bound_ms=pairs * 10 / PEAK_F32_OPS_PER_S * 1e3)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the presets against the JAX golden
+# ---------------------------------------------------------------------------
+
+
+def check_golden(torch):
+    """Each preset in float32 over its golden's frames, held against the
+    JAX golden (`rt3d_torch.golden`, bands in its docstring); then the
+    preset's usual bf16 step over the same frames, whose differences from
+    the golden are measured and printed, not checked. Every preset is
+    measured before any band is checked."""
+    from rt3d_torch import golden
+    from rt3d_torch.pipeline.presets import PRESETS, synthetic_preset
+
+    res = {}
+    for name in PRESETS:
+        g = golden.load_golden(name)
+        n = int(g["frames"])
+        res[name] = {}
+        for dtype in ("float32", None):  # None: the preset's usual bf16
+            gc.collect()
+            torch.cuda.empty_cache()
+            pipe, src = synthetic_preset(name, n, dtype=dtype)
+            state, calib = pipe.init_state(), pipe.calib()
+            outs = []
+            for i in range(n):
+                pkt = src.get(i)
+                state, o = pipe.step(state, torch.from_numpy(pkt.rgb).cuda(),
+                                     torch.from_numpy(pkt.depth).cuda(), calib)
+                outs.append(o)
+            rec = golden.record(outs, float(g["subtraction_threshold"]))
+            res[name][dtype or "usual"] = golden.measure(rec, g)
+            del pipe, outs
+        log(f"  {name}: {json.dumps(res[name])}")
+    for name, r in res.items():
+        try:
+            golden.check_bands(r["float32"])
+        except AssertionError as e:
+            raise AssertionError(f"{name} float32: {e}") from None
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -518,6 +611,14 @@ def main() -> int:
         **none, "window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1,
         "min_sqdist": 1})}
 
+    # 4b. K3 on the step's own slots
+    t = time.perf_counter()
+    slot_row = time_step_slots(torch, runs["2cam"])
+    log(f"  K3 on the 2cam step's slots (valid rows {slot_row['n_valid']} of "
+        f"{slot_row['cap']}, {slot_row['slots']} slots): kernel {slot_row['ms']:.4f} ms, "
+        f"plain {slot_row['plain_ms']:.4f} ms, bound {slot_row['bound_ms']:.5f} ms")
+    phase("sor_knn step slots", t)
+
     drop = ("pipe", "frames", "outs", "last")
     for key in drop:
         runs["2cam"].pop(key)
@@ -542,6 +643,11 @@ def main() -> int:
     runs["1cam"] = run_preset(torch, np, "1cam", FRAMES_1CAM, {
         **none, "window_dedupe": 1, "window_prev_or": 1, "min_sqdist": 1})
 
+    # 9. every preset against the JAX golden
+    t = time.perf_counter()
+    gold = check_golden(torch)
+    phase("golden", t)
+
     launches = {name: dict(r["launches"]) for name, r in runs.items()}
     launches["sor_entry"] = sor_entry
     out_rows = []
@@ -557,6 +663,8 @@ def main() -> int:
     log(json.dumps({"presets": {name: {k: r[k] for k in ("steady_ms", "fps", "peak_mib",
                                                           "plain_ms")}
                                 for name, r in runs.items()}}))
+    log(json.dumps({"sor_knn_step_slots": slot_row}))
+    log(json.dumps({"golden": gold}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))
     log(json.dumps({"ok": True, "device": {

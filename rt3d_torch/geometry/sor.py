@@ -14,8 +14,8 @@ JAX package chooses them:
   points at (1e5, 1e5, 1e5) and d2 = max(|q|^2 + |r|^2 - 2 q.r, 0). Each
   has its plain PyTorch version, `sor_knn_mean_plain`.
 * the exact form `knn_mean_xla` (the JAX package's `_knn_mean_xla`) for
-  clouds under 256 points, on every device: the same identity, with the
-  diagonal set to 0 and invalid columns to 3.4e38.
+  clouds and slots under 256 points, on every device: the same identity,
+  with the diagonal set to 0 and invalid columns to 3.4e38.
 * the Morton-window form `_knn_mean_windowed` for clouds over 4096 points:
   stock PyTorch, as the JAX package computes it in XLA.
 
@@ -136,10 +136,11 @@ def _mean_of_smallest(small: torch.Tensor, k: int
 
 def knn_mean_xla(points: torch.Tensor, valid: torch.Tensor, k: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The exact form of one (N, 3) cloud (`_knn_mean_xla`): invalid points
-    can never be neighbours, the self-distance is exactly 0."""
-    d2 = torch.where(valid[None, :], pairwise_sqdist(points, points), BIG)
-    d2.diagonal().fill_(0.0)
+    """The exact form of (..., N, 3) clouds (`_knn_mean_xla`, vmapped over
+    the leading axes): invalid points can never be neighbours, the
+    self-distance is exactly 0."""
+    d2 = torch.where(valid[..., None, :], pairwise_sqdist(points, points), BIG)
+    d2.diagonal(dim1=-2, dim2=-1).fill_(0.0)
     small = torch.topk(d2, k, dim=-1, largest=False, sorted=True).values
     return _mean_of_smallest(small, k)
 
@@ -177,7 +178,9 @@ def sor_inlier_mask(points: torch.Tensor, valid: torch.Tensor,
 def sor_inlier_mask_slots(points: torch.Tensor, valid: torch.Tensor,
                           nb_neighbors: int = 20, std_ratio: float = 1.5,
                           plain: bool = False) -> torch.Tensor:
-    """Inlier mask (S, K) of every slot's cloud, one K3 launch for all.
+    """Inlier mask (S, K) of every slot's cloud, sized as
+    `sor_inlier_mask` sizes one cloud: from 256 to 4096 rows one K3 launch
+    for all slots, below 256 rows the exact form batched over the slots.
     Slots of more than 4096 points take the Morton-window form on the
     present slots only, as the JAX package does: a padded slot would pay
     the whole windowed pass on `cap` rows of padding. Finding them reads the
@@ -190,7 +193,10 @@ def sor_inlier_mask_slots(points: torch.Tensor, valid: torch.Tensor,
                                                  nb_neighbors, std_ratio)
         return keep
     k = min(nb_neighbors, cap)
-    mean_d, saturated = sor_knn_mean_slots(points, valid, k, plain=plain)
+    if cap >= KERNEL_MIN_N:
+        mean_d, saturated = sor_knn_mean_slots(points, valid, k, plain=plain)
+    else:
+        mean_d, saturated = knn_mean_xla(points, valid, k)
     return inlier_from_stats(valid, mean_d, saturated, std_ratio)
 
 

@@ -11,8 +11,9 @@ when `workspace_sor` is on, and min-distance subtraction (K4).
 Inputs and outputs keep the JAX package's layouts: rgb (C, H, W, 3) uint8
 BGR and depth (C, H, W) f32 on the pipeline's device, per-camera results
 with a leading camera axis. Branches the JAX package has but this port does
-not yet (BoT-SORT and DeepSORT, ReID, GMC, accumulation) raise
-`NotImplementedError` naming their ROADMAP item.
+not yet (BoT-SORT and DeepSORT with their ReID and GMC, accumulation)
+raise `NotImplementedError` naming their ROADMAP item; ByteTrack ignores
+the `with_reid` and `gmc` flags, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -154,9 +155,11 @@ class Pipeline:
     def track(self, state: PipelineState, det: Detections
               ) -> Tuple[PipelineState, torch.Tensor]:
         t = self.cfg.tracker
-        if t.tracker_type != "bytetrack" or t.with_reid or t.gmc:
+        # ByteTrack uses neither ReID nor GMC: the JAX package ignores both
+        # flags for it (its `_use_reid` and `_use_gmc` rules)
+        if t.tracker_type != "bytetrack":
             raise NotImplementedError(
-                "BoT-SORT, DeepSORT, ReID and GMC are ROADMAP item 13")
+                "BoT-SORT and DeepSORT, with their ReID and GMC, are ROADMAP item 13")
         fps = self.cfg.rig.cameras[0].fps
         new, ids = [], []
         for c, ts in enumerate(state.trackers):

@@ -139,6 +139,62 @@ def test_mask_ops_and_windowed_sor_match_cpu(gen):
     assert 0 < keep.sum() < valid.sum()
 
 
+def _slots(gen, cap, n_valids, layout):
+    """Slots of `cap` lattice points, slot i with n_valids[i] valid rows:
+    scattered at random, or in the fusion's two-run layout (the front of
+    each half, as camera 1's rows then its partner's); "dups" repeats
+    every third point in the next row, so distances tie."""
+    s = len(n_valids)
+    pts = (torch.randint(-30, 30, (s, cap, 3), device="cuda", generator=gen).float() * 0.005
+           + torch.randn((s, cap, 3), device="cuda", generator=gen) * 1e-3)
+    if layout == "dups":
+        pts[:, 1::3] = pts[:, 0::3][:, :pts[:, 1::3].shape[1]]
+    n = torch.tensor(n_valids, device="cuda")[:, None]
+    if layout == "two_runs":
+        half = cap // 2
+        col = torch.arange(cap, device="cuda")[None]
+        first = torch.clamp_max(n, half)
+        valid = (col < first) | ((col >= half) & (col < half + n - first))
+    else:
+        rank = torch.rand((s, cap), device="cuda", generator=gen).argsort(-1).argsort(-1)
+        valid = rank < n
+    return pts.contiguous(), valid
+
+
+@pytest.mark.parametrize("layout", ["scattered", "two_runs", "dups"])
+@pytest.mark.parametrize("k", [1, 2, 20, 24, 32])
+@pytest.mark.parametrize("cap", [256, 300, 2048, 4096])
+def test_sor_knn_equals_plain_bitwise(gen, cap, k, layout):
+    """K3 over slots with 0, 1, k - 1, k, k + 1 and cap valid rows, and K5
+    over each slot's cloud, equal the plain version bit for bit on every
+    row (invalid rows included: 3.4e38, saturated). 300 rows match no
+    block or group multiple."""
+    n_valids = sorted({0, 1, max(k - 1, 0), k, k + 1, cap})
+    pts, valid = _slots(gen, cap, n_valids, layout)
+    before = dict(kernels.LAUNCHES)
+    mean, sat = sor.sor_knn_mean_slots(pts, valid, k)
+    assert kernels.LAUNCHES["sor_knn_slots"] == before["sor_knn_slots"] + 1
+    pmean, psat = sor.sor_knn_mean_slots(pts, valid, k, plain=True)
+    assert torch.equal(sat, psat)
+    assert torch.equal(mean, pmean)
+    for i in range(len(n_valids)):
+        m, st = sor.sor_knn_mean(pts[i], valid[i], k)
+        assert torch.equal(m, mean[i]) and torch.equal(st, sat[i])
+
+
+def test_sor_inlier_mask_slots_below_kernel_size(gen):
+    """Slots of 128 rows take the exact form on the card too: k = 40, above
+    the kernels' 32, runs, launches no K3, and equals `sor_inlier_mask` on
+    each slot's cloud."""
+    pts, valid = _slots(gen, 128, [128, 90, 15, 0], "scattered")
+    before = dict(kernels.LAUNCHES)
+    keep = sor.sor_inlier_mask_slots(pts, valid, 40, 1.5)
+    assert kernels.LAUNCHES == before
+    for i in range(4):
+        assert torch.equal(keep[i], sor.sor_inlier_mask(pts[i], valid[i], 40, 1.5))
+    assert 0 < int(keep[0].sum()) < 128 and not keep[2:].any()
+
+
 def test_sor_knn_rejects_bad_tensors(gen):
     pts, valid = _cloud(gen, 300)
     with pytest.raises(ValueError):

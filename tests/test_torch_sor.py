@@ -242,6 +242,43 @@ def test_sor_inlier_mask_slots_fallback_all_empty(rng):
     assert got.shape == (2, cap) and not got.any() and not exp.any()
 
 
+@pytest.mark.parametrize("k", [20, 40])
+def test_sor_inlier_mask_slots_below_kernel_size(rng, k):
+    """Capacity 128 takes the exact form batched over the slots, as
+    `sor_inlier_mask` takes it for one cloud of 128 rows: equal to it slot
+    by slot bit for bit, with any k (40 > the kernels' 32), and to the JAX
+    package outside the exact form's band. Slots: a cloud, one with fewer
+    valid points than k, an empty one."""
+    cap = 128
+    a, av = _cloud(rng, cap)
+    c, cv = _cloud(rng, cap, n_valid=15)
+    pts = np.stack([a, c, rng.normal(size=(cap, 3)).astype(np.float32)])
+    valid = np.stack([av, cv, np.zeros(cap, bool)])
+    got = N(sor.sor_inlier_mask_slots(T(pts), T(valid), k, 1.5))
+    for s in range(3):
+        np.testing.assert_array_equal(got[s], N(sor.sor_inlier_mask(T(pts[s]), T(valid[s]), k, 1.5)))
+    exp = N(jsor.sor_inlier_mask_slots(jnp.asarray(pts), jnp.asarray(valid), k, 1.5))
+    mean, sat = map(N, sor.knn_mean_xla(T(pts), T(valid), k))
+    outside = _outside_band(mean, sat, valid, EXACT_REL)
+    np.testing.assert_array_equal(got[outside], exp[outside])
+    assert 0 < got[0].sum() < valid[0].sum() and not got[1:].any()
+
+
+@pytest.mark.parametrize("cap,form", [(128, "knn_mean_xla"), (255, "knn_mean_xla"),
+                                      (256, "sor_knn_mean_slots"), (4096, "sor_knn_mean_slots")])
+def test_sor_inlier_mask_slots_dispatch(rng, monkeypatch, cap, form):
+    """The slots are sized as one cloud is: the exact form below 256 rows,
+    K3 from 256 to 4096."""
+    calls = []
+    for name in ("knn_mean_xla", "sor_knn_mean_slots"):
+        fn = getattr(sor, name)
+        monkeypatch.setattr(sor, name, functools.partial(
+            lambda fn, name, *a, **kw: calls.append(name) or fn(*a, **kw), fn, name))
+    pts, valid = _cloud(rng, cap)
+    sor.sor_inlier_mask_slots(T(pts)[None], T(valid)[None])
+    assert calls == [form]
+
+
 def test_cpu_sor_launches_nothing(rng):
     kernels.reset_launches()
     pts, valid = _cloud(rng, 300)

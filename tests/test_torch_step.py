@@ -101,7 +101,10 @@ def test_config_round_trips_through_jax_dict():
                 config.reference_1cam_config()):
         d = jconfig.Config.from_dict(cfg.to_dict()).to_dict()
         assert config.Config.from_dict(d) == cfg
-    assert config.Config.from_dict(jconfig.reference_2cam_config().to_dict()) == config.Config()
+    for port_fn, jax_fn in ((config.reference_2cam_config, jconfig.reference_2cam_config),
+                            (config.reference_2cam_cpu_config, jconfig.reference_2cam_cpu_config),
+                            (config.reference_1cam_config, jconfig.reference_1cam_config)):
+        assert config.Config.from_dict(jax_fn().to_dict()) == port_fn()
 
 
 def test_step_detections_match_jax(runs):
@@ -155,6 +158,28 @@ def test_step_workspace_matches_jax(runs):
         keep, jkeep = N(o.workspace.valid), N(e.workspace.valid)
         np.testing.assert_array_equal(keep[~tie], jkeep[~tie])
         assert keep.sum() > 1000 and (keep != jkeep).sum() <= tie.sum()
+
+
+@pytest.mark.parametrize("flag", ["with_reid", "gmc"])
+def test_bytetrack_ignores_reid_and_gmc_flags(runs, flag):
+    """ByteTrack uses neither ReID nor GMC, so the JAX package ignores both
+    flags for it (`_use_reid`, `_use_gmc`): the port steps with either set
+    and gives the flags-off run's outputs exactly."""
+    cfg, got, _ = runs
+    cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker, **{flag: True}))
+    pipe = build_pipeline(cfg, weights=WEIGHTS, device="cpu")
+    src = SyntheticSource(num_cameras=2, num_frames=2, hw=(H, W), num_objects=2)
+    state, calib = pipe.init_state(), pipe.calib()
+    for i in range(2):
+        pkt = src.get(i)
+        state, out = pipe.step(state, torch.from_numpy(pkt.rgb), torch.from_numpy(pkt.depth), calib)
+        for f in ("valid", "classes", "boxes", "scores"):
+            np.testing.assert_array_equal(N(getattr(out.detections, f)),
+                                          N(getattr(got[i].detections, f)), err_msg=f)
+        np.testing.assert_array_equal(N(out.track_ids), N(got[i].track_ids))
+        np.testing.assert_array_equal(N(out.objects.valid), N(got[i].objects.valid))
+        np.testing.assert_array_equal(N(out.workspace.valid), N(got[i].workspace.valid))
+    assert (N(out.track_ids) > 0).any()
 
 
 @pytest.mark.parametrize("change", ["accumulate", "botsort"])
