@@ -10,13 +10,22 @@ Phases, each printing its wall seconds:
   3. each kernel (K1-K5) against its plain PyTorch version at the main
      paths' shapes, with kernel, plain and library-call times (CUDA events
      around a CUDA graph of 5 calls, median of 20 replays after 3 warm-up
-     calls) and each kernel's bound; K3 and K5 bit for bit on every row,
-     and K5 over each slot of K3's input equals K3's rows;
+     calls) and each kernel's bound; K1, K2, K3 and K5 bit for bit on every
+     row, K5 over each slot of K3's input equal to K3's rows, K4 bit for bit
+     without a threshold and under the step's 0.06 m threshold held to its
+     contract (`check_k4_contract`). These inputs are the worst cases: a
+     dense key grid, and K4's queries in random order, which no box test
+     prunes;
   4. the main path: `build_pipeline` on the default config (two HD720
      cameras, yolo11x-seg with the committed weights, ByteTrack, 5 mm
      voxels) stepping 8 synthetic frames, every kernel's launch counter
-     checked per step; then K3 on the step's own fused slots of the last
-     frame (bit for bit, timed);
+     checked per step; then (4b) K3 on the step's own fused slots of the
+     last frame (bit for bit, timed beside `cdist` + `topk`), and (4c) K1,
+     K2 and K4 on the step's own inputs of the last frame, rebuilt by the
+     pipeline's stages (`step_kernel_inputs`: they must give the step's
+     object voxels and keep mask), each checked, timed and bounded for
+     those inputs, with K2's sentinel share and the share of K4's valid
+     pairs its box tests keep;
   5. the same frames with every kernel swapped for its plain version
      (`build_pipeline(plain_kernels=True)`), held against phase 4;
   6. the CPU-variant preset (`reference_2cam_cpu_config`: 12x12 mask
@@ -30,7 +39,8 @@ Phases, each printing its wall seconds:
      one per call; then the per-slot fallback above 4096 points (20 slots
      of 16384 rows, 4 present) against one batched windowed pass, timed;
   8. the 1-cam preset (`reference_1cam_config`, yolo11l-seg), 4 frames,
-     counters checked per step, then its plain run compared;
+     counters checked per step, then its plain run compared, then K1, K2
+     and K4 on its own inputs as in 4c;
   9. every preset in float32 (TF32 off) over the frames of its JAX golden
      (`tests/golden_torch/`, from `tools/make_torch_golden.py`), held
      against it within the bands of `rt3d_torch/golden.py`; then its usual
@@ -41,6 +51,7 @@ the port is missing beside this file, or when any check fails. The last
 line of standard output is the result object.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -53,8 +64,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 8
 FRAMES_1CAM = 4
 WARMUP_FRAMES = 2
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_F32_OPS_PER_S = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+# H100 SXM at 1.98 GHz: 132 SMs x 128 FP32 lanes issue 33.5e12 unfused f32
+# operations a second (the 67 TFLOP/s of the data sheet counts a fused
+# multiply-add as two; the kernels' distances are unfused, for their bits),
+# and 132 x 64 INT32 lanes 16.7e12 integer operations
+PEAK_F32_OPS_PER_S = 33.5e12
+PEAK_INT32_OPS_PER_S = 16.7e12
 
 T0 = time.perf_counter()
 
@@ -104,6 +120,92 @@ def time_ms(torch, fn, calls: int = 5, replays: int = 20, warmup: int = 3,
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def bound(nbytes, f32_ops=0, int_ops=0):
+    """The least time of `nbytes` moved once and of the operations at the
+    card's rate for their type (`bytes_bound_ms`, `ops_bound_ms`), and the
+    larger of the two (`bound_ms`, `bound_by`)."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = (f32_ops / PEAK_F32_OPS_PER_S + int_ops / PEAK_INT32_OPS_PER_S) * 1e3
+    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+                bytes_bound_ms=tb, ops_bound_ms=to)
+
+
+def fmt_bound(b) -> str:
+    return (f"{b['bound_ms']:.5f} ms ({b['bound_by']}; bytes {b['bytes_bound_ms']:.5f}, "
+            f"operations {b['ops_bound_ms']:.5f})")
+
+
+def window_ops(torch, kg, wg=None):
+    """Integer operations the window's data needs: K1 one compare (its OR
+    folds into the compare's predicate) for each of the 58 offsets of each
+    live key; K2 the 58 compares of each pixel that has a non-zero word in
+    its window (every other output is 0 whatever the keys), plus one OR for
+    each same-key neighbour with a non-zero word."""
+    from rt3d_torch.geometry import ops
+
+    offsets = list(ops._window_offsets(4, 6))
+    if wg is None:
+        return len(offsets) * int((kg != ops.INT_SENTINEL).sum())
+    need = torch.zeros_like(kg, dtype=torch.bool)
+    ors = 0
+    for dy, dx in offsets:
+        nz = ops._shifted(wg, dy, dx, 0) != 0
+        need |= nz
+        ors += int((nz & (ops._shifted(kg, dy, dx, ops.INT_SENTINEL) == kg)).sum())
+    return len(offsets) * int(need.sum()) + ors
+
+
+def k4_pairs(torch, q, qv, r, rv, t2, block=256, tile=32):
+    """(valid (query, reference) pairs, pairs left by the box tests of
+    min_d2.cu at squared threshold `t2`): each `block` of queries against
+    each `block` of references, then each `tile` (a warp) of queries against
+    each `tile` of references, every box over valid rows only; a pair
+    survives when neither its blocks' nor its tiles' boxes are farther apart
+    than the threshold."""
+    def boxes(p, v, size):
+        n = -(-p.shape[0] // block) * block
+        pp = torch.zeros((n, 3), device=p.device)
+        vv = torch.zeros(n, dtype=torch.bool, device=p.device)
+        pp[:p.shape[0]], vv[:p.shape[0]] = p, v
+        pp, vv = pp.view(-1, size, 3), vv.view(-1, size)
+        inf = torch.full((), float("inf"), device=p.device)
+        return (torch.where(vv[..., None], pp, inf).amin(1),
+                torch.where(vv[..., None], pp, -inf).amax(1), vv.sum(1))
+
+    def near(a, b):
+        (alo, ahi, an), (blo, bhi, bn) = a, b
+        gap = torch.clamp_min(torch.maximum(blo[None] - ahi[:, None], alo[:, None] - bhi[None]), 0)
+        g2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
+        return ~(g2 > t2) & (an[:, None] > 0) & (bn[None, :] > 0)
+
+    qb, rb = boxes(q, qv, block), boxes(r, rv, block)
+    qt, rt = boxes(q, qv, tile), boxes(r, rv, tile)
+    per = block // tile
+    keep = near(qt, rt) & near(qb, rb).repeat_interleave(per, 0).repeat_interleave(per, 1)
+    pairs = qt[2][:, None].double() * rt[2][None, :].double()
+    return int(qv.sum()) * int(rv.sum()), int((pairs * keep).sum())
+
+
+def k4_t2(torch, thr):
+    """The f32 threshold^2 that `subtract_min_dist` compares against."""
+    t = torch.tensor(thr, dtype=torch.float32, device="cuda")
+    return t * t
+
+
+def check_k4_contract(torch, d2, pd2, qv, t2, what):
+    """K4's threshold contract against its plain version: bit for bit on
+    every valid query whose plain d2 <= t2, > t2 on the other valid
+    queries, 3.4e38 on invalid queries in both. Returns the first mask."""
+    from rt3d_torch.geometry.subtract import BIG
+
+    near = qv & (pd2 <= t2)
+    check(torch.equal(d2[near], pd2[near]), f"K4 on {what}: d2 <= t2 not bit for bit")
+    check(bool((d2[qv & ~near] > t2).all()), f"K4 on {what}: a far query got d2 <= t2")
+    check(bool((d2[~qv] == BIG).all()) and bool((pd2[~qv] == BIG).all()),
+          f"K4 on {what}: an invalid query did not get 3.4e38")
+    return near
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +265,6 @@ def check_kernels(torch, gen):
     k = 20
     rows = []
 
-    def bound(nbytes, nops):
-        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     # K1
     got = ops.window_dedupe(x["k1"])
     ref = ops.window_dedupe(x["k1"], plain=True)
@@ -178,7 +276,7 @@ def check_kernels(torch, gen):
         replaces="rt3d/geometry/pallas_ops.py:332", max_abs_err=err,
         ms=time_ms(torch, lambda: ops.window_dedupe(x["k1"])),
         plain_ms=time_ms(torch, lambda: ops.window_dedupe(x["k1"], plain=True)),
-        library_ms=None, bound=bound(8 * hw, 58 * hw)))
+        library_ms=None, bound=bound(8 * hw, int_ops=window_ops(torch, x["k1"]))))
 
     # K2
     got = ops.window_prev_or(x["k2"], x["w2"])
@@ -191,7 +289,7 @@ def check_kernels(torch, gen):
         replaces="rt3d/geometry/pallas_ops.py:356", max_abs_err=err,
         ms=time_ms(torch, lambda: ops.window_prev_or(x["k2"], x["w2"])),
         plain_ms=time_ms(torch, lambda: ops.window_prev_or(x["k2"], x["w2"], plain=True)),
-        library_ms=None, bound=bound(12 * hw, 3 * 58 * hw)))
+        library_ms=None, bound=bound(12 * hw, int_ops=window_ops(torch, x["k2"], x["w2"]))))
 
     # K3: bit for bit against its plain version on every row (invalid rows
     # included), as K5
@@ -216,25 +314,27 @@ def check_kernels(torch, gen):
         library_ms=time_ms(torch, k3_library),
         bound=bound(s * cap * (12 + 1 + 4 + 1), pairs * 10)))
 
-    # K4: keep/drop at 0.06 m equal; d2 within 1e-6 where <= threshold^2
+    # K4: bit for bit on every row without a threshold; under the step's
+    # threshold, its contract (`check_k4_contract`); timed as the step calls it
     q, r, rv = x["q"], x["r"], x["rv"]
-    d2 = subtract.min_sqdist(q, r, rv)
-    pd2 = subtract.min_sqdist(q, r, rv, plain=True)
-    t2 = torch.tensor(0.06, device="cuda") ** 2
-    check(torch.equal(d2 > t2, pd2 > t2), "K4 keep/drop decisions differ")
-    near = pd2 <= t2
-    check(bool(((d2 - pd2).abs()[near] <= 1e-6).all()), "K4 d2 differs within the threshold")
+    check(torch.equal(subtract.min_sqdist(q, r, rv), subtract.min_sqdist(q, r, rv, plain=True)),
+          "K4 without a threshold differs from its plain version")
+    qv = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
+    t2 = k4_t2(torch, 0.06)
+    d2 = subtract.min_sqdist(q, r, rv, threshold=0.06, query_valid=qv)
+    pd2 = subtract.min_sqdist(q, r, rv, threshold=0.06, query_valid=qv, plain=True)
+    near = check_k4_contract(torch, d2, pd2, qv, t2, "phase 3's inputs")
     rvalid = r[rv]
-    nr = rvalid.shape[0]
+    _, kept_pairs = k4_pairs(torch, q, qv, r, rv, t2)
     rows.append(dict(
         name="min_sqdist", source="rt3d_torch/csrc/min_d2.cu",
         replaces="rt3d/geometry/pallas_ops.py:25",
         max_abs_err=float((d2 - pd2).abs()[near].max()),
-        ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv)),
-        plain_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, plain=True)),
+        ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, 0.06, qv)),
+        plain_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, 0.06, qv, plain=True)),
         library_ms=time_ms(torch, lambda: torch.cdist(q, rvalid).pow(2).amin(1)),
-        bound=bound(q.numel() * 4 + q.shape[0] * 4 + r.numel() * 4 + r.shape[0],
-                    q.shape[0] * nr * 9)))
+        exact_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv)),
+        bound=bound(q.shape[0] * (12 + 1 + 4) + r.shape[0] * (12 + 1), kept_pairs * 9)))
 
     # K5: bit for bit against its plain version (2048 rows, and 3000, not a
     # multiple of its block), and against K3's row for each slot
@@ -309,11 +409,143 @@ def time_step_slots(torch, run, k=20):
           "K3 on the step's slots differs from its plain version")
     n = valid.sum(-1)
     pairs = int((n.long() ** 2).sum())
+
+    def library():
+        d = torch.cdist(pts, pts)
+        return torch.topk(d, k, dim=-1, largest=False).values.sum(-1) / (k - 1)
+
     return dict(
         n_valid=[int(v) for v in n if v > 0], cap=pts.shape[1], slots=pts.shape[0],
         ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k)),
         plain_ms=time_ms(torch, lambda: sor.sor_knn_mean_slots(pts, valid, k, plain=True)),
-        bound_ms=pairs * 10 / PEAK_F32_OPS_PER_S * 1e3)
+        library_ms=time_ms(torch, library),
+        **bound(pts.shape[0] * pts.shape[1] * (12 + 1 + 4 + 1), pairs * 10))
+
+
+# ---------------------------------------------------------------------------
+# K1, K2 and K4 on the step's own inputs
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Record the positional arguments of each call of `module.<name>` made
+    inside the block: the stages look their kernel wrapper up in its module
+    at each call, so the step's own code hands over its arguments."""
+    fn, calls = getattr(module, name), []
+
+    def rec(*args, **kwargs):
+        calls.append(args)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def step_kernel_inputs(torch, run):
+    """K1's, K2's and K4's arguments in the preset's last frame, rebuilt by
+    the pipeline's own stages on that frame: detect and masks again (their
+    detections must equal the step's), `object_clouds` (K2's key and word
+    grids, one per camera; the object voxels must equal the step's),
+    `workspace_clouds` (K1's key grids), `workspace_sor` and
+    `flatten_objects` (K4's queries and references; `subtract` on them must
+    give the step's keep mask)."""
+    from rt3d_torch.geometry import ops
+    from rt3d_torch.geometry.fusion import flatten_objects
+    from rt3d_torch.geometry.ops import PointBuffer
+
+    pipe, out = run["pipe"], run["last"]
+    rgb, depth = run["frames"][-1]
+    calib = pipe.calib()
+    with torch.no_grad():
+        det, protos = pipe.detect(pipe.preprocess(rgb))
+        check(torch.equal(det.boxes, out.detections.boxes)
+              and torch.equal(det.valid, out.detections.valid),
+              "detect on the last frame again differs from the step's detections")
+        with recording(ops, "window_prev_or") as k2:
+            objs, _ = pipe.object_clouds(depth, pipe.masks(protos, det), det,
+                                         out.track_ids, calib)
+        pc = out.per_camera_objects
+        check(torch.equal(objs.points, pc.points) and torch.equal(objs.valid, pc.valid),
+              "K2's rebuilt inputs do not give the step's object voxels")
+        with recording(ops, "window_dedupe") as k1:
+            ws, _ = pipe.workspace_clouds(depth, calib)
+        ws = pipe.workspace_sor(PointBuffer(ws.points.reshape(-1, 3), ws.valid.reshape(-1)))
+        flat, _ = flatten_objects(out.objects, pipe.cfg.pipeline.max_points_fused_flat)
+        check(torch.equal(flat.points, out.objects_flat.points)
+              and torch.equal(flat.valid, out.objects_flat.valid),
+              "flatten_objects does not give the step's object buffer")
+        check(torch.equal(pipe.subtract(ws, flat).valid, out.workspace.valid),
+              "K4's rebuilt inputs do not give the step's keep mask")
+    return dict(k1=[a[0] for a in k1], k2=[a[:2] for a in k2], ws=ws, flat=flat,
+                thr=pipe.cfg.pipeline.subtraction_threshold)
+
+
+def time_step_kernels(torch, run):
+    """K1, K2 and K4 on the step's own inputs (`step_kernel_inputs`): each
+    against its plain version, timed beside its bound for those inputs."""
+    from rt3d_torch.geometry import ops, subtract
+
+    x = step_kernel_inputs(torch, run)
+    res = {"window_dedupe": [], "window_prev_or": []}
+    for kg in x["k1"]:
+        check(torch.equal(ops.window_dedupe(kg), ops.window_dedupe(kg, plain=True)),
+              "K1 on the step's key grid differs from its plain version")
+        res["window_dedupe"].append(dict(
+            hw=list(kg.shape), sentinel_share=float((kg == ops.INT_SENTINEL).float().mean()),
+            ms=time_ms(torch, lambda: ops.window_dedupe(kg)),
+            plain_ms=time_ms(torch, lambda: ops.window_dedupe(kg, plain=True)),
+            **bound(8 * kg.numel(), int_ops=window_ops(torch, kg))))
+    for kg, wg in x["k2"]:
+        check(torch.equal(ops.window_prev_or(kg, wg), ops.window_prev_or(kg, wg, plain=True)),
+              "K2 on the step's grids differs from its plain version")
+        res["window_prev_or"].append(dict(
+            hw=list(kg.shape), sentinel_share=float((kg == ops.INT_SENTINEL).float().mean()),
+            ms=time_ms(torch, lambda: ops.window_prev_or(kg, wg)),
+            plain_ms=time_ms(torch, lambda: ops.window_prev_or(kg, wg, plain=True)),
+            **bound(12 * kg.numel(), int_ops=window_ops(torch, kg, wg))))
+
+    q, qv, r, rv = x["ws"].points, x["ws"].valid, x["flat"].points, x["flat"].valid
+    thr = x["thr"]
+    t2 = k4_t2(torch, thr)
+    d2 = subtract.min_sqdist(q, r, rv, thr, qv)
+    pd2 = subtract.min_sqdist(q, r, rv, thr, qv, plain=True)
+    check_k4_contract(torch, d2, pd2, qv, t2, "the step's inputs")
+    check(torch.equal(subtract.min_sqdist(q, r, rv, query_valid=qv), pd2),
+          "K4 on the step's inputs without a threshold differs from its plain version")
+    rvalid = r[rv]
+    valid_pairs, kept_pairs = k4_pairs(torch, q, qv, r, rv, t2)
+    nbytes = q.shape[0] * (12 + 1 + 4) + r.shape[0] * (12 + 1)
+    res["min_sqdist"] = dict(
+        queries=q.shape[0], valid_queries=int(qv.sum()), refs=r.shape[0],
+        valid_refs=int(rv.sum()), valid_pairs=valid_pairs, kept_pairs=kept_pairs,
+        kept_share=kept_pairs / max(valid_pairs, 1),
+        ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, thr, qv)),
+        plain_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, thr, qv, plain=True)),
+        library_ms=time_ms(torch, lambda: torch.cdist(q, rvalid).pow(2).amin(1)),
+        exact_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, query_valid=qv)),
+        **bound(nbytes, kept_pairs * 9),
+        valid_pairs_bound_ms=bound(nbytes, valid_pairs * 9)["bound_ms"])
+    return res
+
+
+def log_step_kernels(name, res):
+    for kname in ("window_dedupe", "window_prev_or"):
+        for c, v in enumerate(res[kname]):
+            log(f"  {kname} on {name} camera {c}'s grid ({v['hw'][0]}x{v['hw'][1]}, "
+                f"sentinel share {v['sentinel_share']:.4f}): kernel {v['ms']:.4f} ms, plain "
+                f"{v['plain_ms']:.4f} ms, bound {fmt_bound(v)}")
+    v = res["min_sqdist"]
+    log(f"  min_sqdist on {name}'s workspace ({v['valid_queries']} of {v['queries']} queries "
+        f"valid) and objects ({v['valid_refs']} of {v['refs']} valid): kernel {v['ms']:.4f} ms, "
+        f"plain {v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms, bound "
+        f"{fmt_bound(v)} over the {v['kept_share']:.4f} of "
+        f"{v['valid_pairs']} valid pairs the box tests keep "
+        f"({v['valid_pairs_bound_ms']:.5f} ms over all of them); without a threshold "
+        f"{v['exact_ms']:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +822,7 @@ def main() -> int:
     load_library()
     log(f"built {os.path.relpath(lib_path, ROOT)} in {build_s:.2f} s")
     for line in nvcc_log.splitlines():
-        if "Compiling entry" in line or "Used" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("  ptxas:", line.strip().replace("ptxas info    : ", ""))
     phase("build", t)
 
@@ -600,8 +832,9 @@ def main() -> int:
     rows = check_kernels(torch, gen)
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']}, bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
-            f"max_abs_err {r['max_abs_err']}")
+            f"library {r['library_ms']}, bound {fmt_bound(r['bound'])}, "
+            f"max_abs_err {r['max_abs_err']}"
+            + (f"; without a threshold {r['exact_ms']:.4f} ms" if "exact_ms" in r else ""))
     phase("kernels", t)
 
     # 4-5. the default main path, then its plain run
@@ -616,8 +849,15 @@ def main() -> int:
     slot_row = time_step_slots(torch, runs["2cam"])
     log(f"  K3 on the 2cam step's slots (valid rows {slot_row['n_valid']} of "
         f"{slot_row['cap']}, {slot_row['slots']} slots): kernel {slot_row['ms']:.4f} ms, "
-        f"plain {slot_row['plain_ms']:.4f} ms, bound {slot_row['bound_ms']:.5f} ms")
+        f"plain {slot_row['plain_ms']:.4f} ms, library {slot_row['library_ms']:.4f} ms, "
+        f"bound {fmt_bound(slot_row)}")
     phase("sor_knn step slots", t)
+
+    # 4c. K1, K2 and K4 on the step's own inputs
+    t = time.perf_counter()
+    step_rows = {"2cam": time_step_kernels(torch, runs["2cam"])}
+    log_step_kernels("2cam", step_rows["2cam"])
+    phase("2cam step inputs", t)
 
     drop = ("pipe", "frames", "outs", "last")
     for key in drop:
@@ -642,6 +882,12 @@ def main() -> int:
     # 8. the 1-cam preset
     runs["1cam"] = run_preset(torch, np, "1cam", FRAMES_1CAM, {
         **none, "window_dedupe": 1, "window_prev_or": 1, "min_sqdist": 1})
+    t = time.perf_counter()
+    step_rows["1cam"] = time_step_kernels(torch, runs["1cam"])
+    log_step_kernels("1cam", step_rows["1cam"])
+    phase("1cam step inputs", t)
+    for key in drop:
+        runs["1cam"].pop(key)
 
     # 9. every preset against the JAX golden
     t = time.perf_counter()
@@ -650,20 +896,21 @@ def main() -> int:
 
     launches = {name: dict(r["launches"]) for name, r in runs.items()}
     launches["sor_entry"] = sor_entry
+    step_rows["2cam"]["sor_knn_slots"] = slot_row
     out_rows = []
     for r in rows:
-        b_ms, b_by = r.pop("bound")
         path = "sor_entry" if r["name"] == "sor_knn" else "2cam"
+        steps = {p: v[r["name"]] for p, v in step_rows.items() if r["name"] in v}
         out_rows.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[path][r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-            library_ms=r["library_ms"],
-            launches_by_path={p: n[r["name"]] for p, n in launches.items()}))
+            plain_ms=r["plain_ms"], **r["bound"], library_ms=r["library_ms"],
+            launches_by_path={p: n[r["name"]] for p, n in launches.items()},
+            **({"exact_ms": r["exact_ms"]} if "exact_ms" in r else {}),
+            **({"step_inputs": steps} if steps else {})))
     log(json.dumps({"presets": {name: {k: r[k] for k in ("steady_ms", "fps", "peak_mib",
                                                           "plain_ms")}
                                 for name, r in runs.items()}}))
-    log(json.dumps({"sor_knn_step_slots": slot_row}))
     log(json.dumps({"golden": gold}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))

@@ -292,11 +292,15 @@ def window_prev_or_plain(kg: torch.Tensor, wg: torch.Tensor, dy_max: int = 4,
 def window_prev_or(kg: torch.Tensor, wg: torch.Tensor, dy_max: int = 4,
                    dx_max: int = 6, plain: bool = False) -> torch.Tensor:
     """K2 (replaces `_window_prev_or_kernel`, rt3d/geometry/pallas_ops.py):
-    (H, W) int32 OR of preceding same-key window words."""
+    (H, W) int32 OR of preceding same-key window words. The kernel takes
+    windows of up to 4 rows above and 6 columns each side."""
     if not kernels.use_kernel(kg, plain):
         return window_prev_or_plain(kg, wg, dy_max, dx_max)
     kernels.check(kg, torch.int32, (-1, -1), "window_prev_or keys")
     kernels.check(wg, torch.int32, tuple(kg.shape), "window_prev_or words")
+    if not (0 <= dy_max <= 4 and 0 <= dx_max <= 6):
+        raise ValueError(f"window_prev_or: the kernel takes dy_max <= 4 and "
+                         f"dx_max <= 6, got {dy_max} and {dx_max}")
     h, w = kg.shape
     out = torch.empty_like(kg)
     kernels.launch("window_prev_or", "rt3d_window_prev_or", kg.data_ptr(),

@@ -276,6 +276,85 @@ def test_min_sqdist_matches_jax(rng, interpret_pallas, reference):
     assert near.sum() > 100 and tie.sum() > 0
 
 
+def _workspace_lattice(rng, n, n_valid, voxel=0.01):
+    """Workspace-shaped queries: a voxel lattice sorted x-major by key,
+    some rows holes at (0, 0, 0) and invalid, then an invalid zero tail."""
+    lat = _lattice(rng, n_valid, voxel, int(round(0.3 / voxel)))
+    lat = lat[np.lexsort((lat[:, 2], lat[:, 1], lat[:, 0]))]
+    q = np.zeros((n, 3), np.float32)
+    q[:n_valid] = lat
+    valid = (np.arange(n) < n_valid) & (rng.uniform(size=n) >= 0.15)
+    return np.where(valid[:, None], q, 0).astype(np.float32), valid
+
+
+def _threshold_ties(q, r, rv, thr):
+    d64 = ((q[:, None, :].astype(np.float64) - r[rv][None].astype(np.float64)) ** 2).sum(-1).min(1)
+    return np.abs(d64 - thr * thr) < 1e-8
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas"])
+def test_min_sqdist_threshold_matches_jax(rng, interpret_pallas, reference):
+    """`min_sqdist` under the step's threshold and query validity, on
+    workspace-shaped lattice queries with holes and an invalid tail: 3.4e38
+    on invalid queries; on valid ones the tolerances and tie rule of
+    `test_min_sqdist_matches_jax` against `min_sqdist_to_set` (given the
+    same `query_valid`) and against `min_sqdist_pallas(threshold=thr)`,
+    whose pruned rows are only promised to lie beyond the threshold."""
+    thr = 0.06
+    q, qv = _workspace_lattice(rng, 1700, 1300)
+    r = _lattice(rng, 2100)
+    rv = rng.uniform(size=2100) < 0.3
+    got = N(subtract.min_sqdist(T(q), T(r), T(rv), threshold=thr, query_valid=T(qv)))
+    assert (got[~qv] == np.float32(subtract.BIG)).all()
+    if reference == "xla":
+        exp = N(jsub.min_sqdist_to_set(jnp.asarray(q), jnp.asarray(qv), jnp.asarray(r),
+                                       jnp.asarray(rv)))
+        atol = 5e-7
+    else:
+        exp = N(pallas_ops.min_sqdist_pallas(jnp.asarray(q), jnp.asarray(r),
+                                             jnp.asarray(rv), threshold=thr))
+        atol = 1e-9
+    t2 = np.float32(thr) ** 2
+    near = qv & (exp <= thr * thr)
+    np.testing.assert_allclose(got[near], exp[near], rtol=1e-6, atol=atol)
+    tie = _threshold_ties(q, r, rv, thr)
+    ok = qv & ~tie
+    assert np.array_equal((got > t2)[ok], (exp > t2)[ok])
+    assert near.sum() > 100 and (qv & tie).sum() > 0
+
+
+def test_min_sqdist_threshold_keeps_exact_rows(rng):
+    """On the CPU the threshold changes no valid row: the plain version is
+    exact everywhere, which meets the contract for any threshold."""
+    q, qv = _workspace_lattice(rng, 900, 700)
+    r = _lattice(rng, 500)
+    rv = rng.uniform(size=500) < 0.5
+    exact = N(subtract.min_sqdist(T(q), T(r), T(rv)))
+    for thr in (0.06, 0.0, 1e3):
+        got = N(subtract.min_sqdist(T(q), T(r), T(rv), threshold=thr, query_valid=T(qv)))
+        np.testing.assert_array_equal(got[qv], exact[qv])
+        assert (got[~qv] == np.float32(subtract.BIG)).all()
+
+
+@pytest.mark.parametrize("voxel", [0.005, 0.01])
+def test_subtract_min_dist_keep_matches_jax_with_holes(rng, voxel):
+    """The keep mask of `subtract_min_dist` (now with the threshold and the
+    workspace's validity passed to K4) against the JAX package's on lattice
+    clouds with holes: equal except at threshold ties, and never keeping an
+    invalid row."""
+    thr = 0.06
+    q, qv = _workspace_lattice(rng, 1500, 1200, voxel)
+    r = _lattice(rng, 900, voxel, int(round(0.1 / voxel)))
+    rv = np.arange(900) < 400
+    ws, obj = ops.PointBuffer(T(q), T(qv)), ops.PointBuffer(T(r), T(rv))
+    keep = N(subtract.subtract_min_dist(ws, obj, thr).valid)
+    jkeep = N(jsub.subtract_min_dist(jops.PointBuffer(jnp.asarray(q), jnp.asarray(qv)),
+                                     jops.PointBuffer(jnp.asarray(r), jnp.asarray(rv)), thr).valid)
+    tie = _threshold_ties(q, r, rv, thr)
+    assert np.array_equal(keep[~tie], jkeep[~tie])
+    assert not keep[~qv].any() and 0 < keep.sum() < qv.sum()
+
+
 def test_subtract_min_dist_matches_jax_and_empty_objects(rng):
     ws = ops.PointBuffer(T(_lattice(rng, 800)), T(rng.uniform(size=800) < 0.7))
     obj = ops.PointBuffer(T(_lattice(rng, 300)), torch.zeros(300, dtype=torch.bool))

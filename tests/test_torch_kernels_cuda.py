@@ -205,3 +205,140 @@ def test_sor_knn_rejects_bad_tensors(gen):
         sor.sor_knn_mean(pts.t().contiguous().t(), valid, 20)
     with pytest.raises(ValueError):
         sor.sor_knn_mean(pts, valid[:-1], 20)
+
+
+# ---------------------------------------------------------------------------
+# K4 under a threshold, K2 on mostly-sentinel grids
+# ---------------------------------------------------------------------------
+
+
+def _assert_k4_contract(d2, pd2, qv, thr):
+    """The threshold contract of `subtract.min_sqdist`: bit for bit where the
+    plain d2 <= t2 (t2 = f32(thr) * f32(thr)), > t2 on the other valid
+    queries, 3.4e38 on invalid queries in both."""
+    t = torch.tensor(thr, dtype=torch.float32, device="cuda")
+    t2 = t * t
+    big = torch.tensor(subtract.BIG, dtype=torch.float32, device="cuda")
+    near = qv & (pd2 <= t2)
+    assert torch.equal(d2[near], pd2[near])
+    assert bool((d2[qv & ~near] > t2).all())
+    assert bool((d2[~qv] == big).all()) and bool((pd2[~qv] == big).all())
+    return near
+
+
+def _workspace(gen, n, n_valid, holes=0.1):
+    """Workspace-shaped queries: `n_valid` rows of a 5 mm lattice over a
+    1 m x 2.25 m x 0.2 m box, sorted x-major by voxel key, some of them
+    holes at (0, 0, 0) and invalid, then an invalid (0, 0, 0) tail."""
+    lat = torch.stack([torch.randint(-50, 150, (n_valid,), device="cuda", generator=gen),
+                       torch.randint(-100, 350, (n_valid,), device="cuda", generator=gen),
+                       torch.randint(-10, 30, (n_valid,), device="cuda", generator=gen)], 1)
+    key = ((lat[:, 0] + 512) * 1024 + lat[:, 1] + 512) * 1024 + lat[:, 2] + 512
+    pts = torch.zeros((n, 3), device="cuda")
+    pts[:n_valid] = lat[key.argsort()].float() * 0.005
+    valid = torch.arange(n, device="cuda") < n_valid
+    valid &= torch.rand(n, device="cuda", generator=gen) >= holes
+    return torch.where(valid[:, None], pts, 0.0).contiguous(), valid
+
+
+def _objects(gen, m, n_valid):
+    """Object-shaped references: `n_valid` compacted valid rows from two
+    lattice blobs, each sorted by key, zeros after them."""
+    half = n_valid // 2
+    r = torch.zeros((m, 3), device="cuda")
+    for i, (lo, n) in enumerate((((30, 80, 0), half), ((40, 180, 0), n_valid - half))):
+        lat = (torch.randint(0, 24, (n, 3), device="cuda", generator=gen)
+               + torch.tensor(lo, device="cuda"))
+        key = (lat[:, 0] * 1024 + lat[:, 1]) * 1024 + lat[:, 2]
+        r[i * half:i * half + n] = lat[key.argsort()].float() * 0.005
+    return r.contiguous(), torch.arange(m, device="cuda") < n_valid
+
+
+@pytest.mark.parametrize("n,n_valid,m,m_valid", [(131072, 90000, 20480, 2000),
+                                                 (1000, 700, 333, 130), (300, 257, 300, 290)])
+def test_min_sqdist_threshold_contract(gen, n, n_valid, m, m_valid):
+    """K4 with the step's threshold and query validity on sorted lattice
+    queries with holes and an invalid tail, against compacted object
+    references (the step's shapes, and small ragged ones): the threshold
+    contract, one launch a call, and every valid query exact without a
+    threshold."""
+    q, qv = _workspace(gen, n, n_valid)
+    r, rv = _objects(gen, m, m_valid)
+    before = kernels.LAUNCHES["min_sqdist"]
+    d2 = subtract.min_sqdist(q, r, rv, threshold=0.06, query_valid=qv)
+    assert kernels.LAUNCHES["min_sqdist"] == before + 1
+    pd2 = subtract.min_sqdist(q, r, rv, threshold=0.06, query_valid=qv, plain=True)
+    near = _assert_k4_contract(d2, pd2, qv, 0.06)
+    assert int(near.sum()) > 0
+    exact = subtract.min_sqdist(q, r, rv, query_valid=qv)
+    assert torch.equal(exact, pd2)
+    assert torch.equal(subtract.min_sqdist(q, r, rv), subtract.min_sqdist(q, r, rv, plain=True))
+
+
+def test_min_sqdist_refs_on_threshold_sphere(gen):
+    """References at exactly the threshold from lattice queries, along an
+    axis and on (8, 8, 4) diagonals of the 5 mm lattice, so computed d2 fall
+    on both sides of t2 and on it: the box tests drop none of them wrongly."""
+    q, qv = _workspace(gen, 4096, 4096, holes=0.0)
+    steps = torch.tensor([[12, 0, 0], [0, -12, 0], [0, 0, 12], [7, 0, 0],
+                          [8, 8, 4], [-4, 8, -8]], device="cuda")
+    pick = torch.randint(0, 4096, (600,), device="cuda", generator=gen)
+    step = steps[torch.randint(0, len(steps), (600,), device="cuda", generator=gen)]
+    r = (q[pick] + step.float() * 0.005).contiguous()
+    rv = torch.ones(600, dtype=torch.bool, device="cuda")
+    d2 = subtract.min_sqdist(q, r, rv, threshold=0.06, query_valid=qv)
+    pd2 = subtract.min_sqdist(q, r, rv, threshold=0.06, query_valid=qv, plain=True)
+    _assert_k4_contract(d2, pd2, qv, 0.06)
+    t = torch.tensor(0.06, dtype=torch.float32, device="cuda")
+    assert int(((pd2 - t * t).abs() <= 1e-9).sum()) > 0
+
+
+def test_min_sqdist_no_valid_reference(gen):
+    q, qv = _workspace(gen, 5000, 4000)
+    r, _ = _objects(gen, 1000, 800)
+    rv = torch.zeros(1000, dtype=torch.bool, device="cuda")
+    big = torch.full((5000,), subtract.BIG, dtype=torch.float32, device="cuda")
+    for kw in ({"threshold": 0.06, "query_valid": qv}, {}):
+        assert torch.equal(subtract.min_sqdist(q, r, rv, **kw), big)
+        assert torch.equal(subtract.min_sqdist(q, r, rv, plain=True, **kw), big)
+
+
+def _sparse_grid(gen, h, w, sent_words):
+    """A grid that is sentinel with word 0 but for a few live rectangles, as
+    the object-mask path gives it; with `sent_words`, some sentinel pixels
+    away from them carry non-zero words, which the block skip must see."""
+    kg = torch.full((h, w), ops.INT_SENTINEL, dtype=torch.int32, device="cuda")
+    wg = torch.zeros((h, w), dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        r0 = int(torch.randint(0, max(h - 8, 1), (1,), device="cuda", generator=gen))
+        c0 = int(torch.randint(0, max(w - 12, 1), (1,), device="cuda", generator=gen))
+        rh, cw = min(8 + r0 % 30, h - r0), min(12 + c0 % 90, w - c0)
+        kg[r0:r0 + rh, c0:c0 + cw] = torch.randint(0, 6, (rh, cw), device="cuda", generator=gen,
+                                                     dtype=torch.int32)
+        wg[r0:r0 + rh, c0:c0 + cw] = torch.randint(1, 2**10, (rh, cw), device="cuda",
+                                                     generator=gen, dtype=torch.int32)
+    if sent_words:
+        spots = (torch.rand((h, w), device="cuda", generator=gen) < 0.002) & (kg == ops.INT_SENTINEL)
+        wg = torch.where(spots, 5, wg).to(torch.int32)
+    return kg, wg
+
+
+@pytest.mark.parametrize("sent_words", [False, True])
+@pytest.mark.parametrize("h,w", [(720, 1280), (37, 53), (45, 131), (16, 128), (3, 5)])
+def test_window_prev_or_sparse_grids(gen, h, w, sent_words):
+    """K2 on mostly-sentinel grids, with and without words under sentinel
+    keys, at widths that are and are not multiples of 4 and of the tile:
+    equal to the plain version, one launch a call."""
+    kg, wg = _sparse_grid(gen, h, w, sent_words)
+    before = kernels.LAUNCHES["window_prev_or"]
+    got = ops.window_prev_or(kg, wg)
+    assert kernels.LAUNCHES["window_prev_or"] == before + 1
+    assert torch.equal(got, ops.window_prev_or(kg, wg, plain=True))
+
+
+def test_window_prev_or_rejects_large_window(gen):
+    kg = _keys(gen, 16, 16)
+    with pytest.raises(ValueError):
+        ops.window_prev_or(kg, kg, 5, 6)
+    with pytest.raises(ValueError):
+        ops.window_prev_or(kg, kg, 4, 7)
