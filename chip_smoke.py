@@ -15,7 +15,8 @@ Phases, each printing its wall seconds:
      without a threshold and under the step's 0.06 m threshold held to its
      contract (`check_k4_contract`). These inputs are the worst cases: a
      dense key grid, and K4's queries in random order, which no box test
-     prunes;
+     prunes. Beside them, an empty kernel (`rt3d_noop`) timed the same way:
+     the launch floor every kernel's time is read against;
   4. the main path: `build_pipeline` on the default config (two HD720
      cameras, yolo11x-seg with the committed weights, ByteTrack, 5 mm
      voxels) stepping 8 synthetic frames, every kernel's launch counter
@@ -24,8 +25,9 @@ Phases, each printing its wall seconds:
      K2 and K4 on the step's own inputs of the last frame, rebuilt by the
      pipeline's stages (`step_kernel_inputs`: they must give the step's
      object voxels and keep mask), each checked, timed and bounded for
-     those inputs, with K2's sentinel share and the share of K4's valid
-     pairs its box tests keep;
+     those inputs, with K1's and K2's sentinel shares, the share of K1's
+     tiles that hold a live key and of its live keys that are duplicates,
+     and the share of K4's valid pairs its box tests keep;
   5. the same frames with every kernel swapped for its plain version
      (`build_pipeline(plain_kernels=True)`), held against phase 4;
   6. the CPU-variant preset (`reference_2cam_cpu_config`: 12x12 mask
@@ -135,6 +137,26 @@ def bound(nbytes, f32_ops=0, int_ops=0):
 def fmt_bound(b) -> str:
     return (f"{b['bound_ms']:.5f} ms ({b['bound_by']}; bytes {b['bytes_bound_ms']:.5f}, "
             f"operations {b['ops_bound_ms']:.5f})")
+
+
+def launch_floor_ms(torch):
+    """`time_ms` of the library's empty kernel (`rt3d_noop`, one thread)."""
+    from rt3d_torch.kernels.build import load_library
+
+    noop = load_library().rt3d_noop
+
+    def call():
+        check(noop(torch.cuda.current_stream().cuda_stream) == 0, "rt3d_noop was refused")
+
+    return time_ms(torch, call)
+
+
+def live_tile_share(torch, live):
+    """Share of the window kernels' 128-column x 8-row tiles that hold a
+    live key; the others take K1's block skip."""
+    h, w = live.shape
+    p = torch.nn.functional.pad(live.to(torch.uint8), (0, -w % 128, 0, -h % 8))
+    return float(p.reshape(p.shape[0] // 8, 8, -1, 128).amax((1, 3)).float().mean())
 
 
 def window_ops(torch, kg, wg=None):
@@ -492,10 +514,14 @@ def time_step_kernels(torch, run):
     x = step_kernel_inputs(torch, run)
     res = {"window_dedupe": [], "window_prev_or": []}
     for kg in x["k1"]:
-        check(torch.equal(ops.window_dedupe(kg), ops.window_dedupe(kg, plain=True)),
+        ref = ops.window_dedupe(kg, plain=True)
+        check(torch.equal(ops.window_dedupe(kg), ref),
               "K1 on the step's key grid differs from its plain version")
+        live = kg != ops.INT_SENTINEL
         res["window_dedupe"].append(dict(
-            hw=list(kg.shape), sentinel_share=float((kg == ops.INT_SENTINEL).float().mean()),
+            hw=list(kg.shape), sentinel_share=float((~live).float().mean()),
+            live_tile_share=live_tile_share(torch, live),
+            dup_share=int((live & (ref == ops.INT_SENTINEL)).sum()) / max(int(live.sum()), 1),
             ms=time_ms(torch, lambda: ops.window_dedupe(kg)),
             plain_ms=time_ms(torch, lambda: ops.window_dedupe(kg, plain=True)),
             **bound(8 * kg.numel(), int_ops=window_ops(torch, kg))))
@@ -535,9 +561,11 @@ def time_step_kernels(torch, run):
 def log_step_kernels(name, res):
     for kname in ("window_dedupe", "window_prev_or"):
         for c, v in enumerate(res[kname]):
+            shares = (f", tiles with a live key {v['live_tile_share']:.4f}, live keys "
+                      f"that are duplicates {v['dup_share']:.4f}" if "dup_share" in v else "")
             log(f"  {kname} on {name} camera {c}'s grid ({v['hw'][0]}x{v['hw'][1]}, "
-                f"sentinel share {v['sentinel_share']:.4f}): kernel {v['ms']:.4f} ms, plain "
-                f"{v['plain_ms']:.4f} ms, bound {fmt_bound(v)}")
+                f"sentinel share {v['sentinel_share']:.4f}{shares}): kernel {v['ms']:.4f} ms, "
+                f"plain {v['plain_ms']:.4f} ms, bound {fmt_bound(v)}")
     v = res["min_sqdist"]
     log(f"  min_sqdist on {name}'s workspace ({v['valid_queries']} of {v['queries']} queries "
         f"valid) and objects ({v['valid_refs']} of {v['refs']} valid): kernel {v['ms']:.4f} ms, "
@@ -830,6 +858,8 @@ def main() -> int:
     t = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = check_kernels(torch, gen)
+    floor_ms = launch_floor_ms(torch)
+    log(f"  launch floor (empty kernel rt3d_noop): {floor_ms:.4f} ms")
     for r in rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {fmt_bound(r['bound'])}, "
@@ -905,6 +935,7 @@ def main() -> int:
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[path][r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], **r["bound"], library_ms=r["library_ms"],
+            launch_floor_ms=floor_ms,
             launches_by_path={p: n[r["name"]] for p, n in launches.items()},
             **({"exact_ms": r["exact_ms"]} if "exact_ms" in r else {}),
             **({"step_inputs": steps} if steps else {})))

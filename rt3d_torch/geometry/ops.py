@@ -264,13 +264,22 @@ def window_dedupe_plain(kg: torch.Tensor, dy_max: int = 4,
     return torch.where(dup, torch.full_like(kg, INT_SENTINEL), kg)
 
 
+def _check_window(name: str, dy_max: int, dx_max: int) -> None:
+    """The window kernels take up to 4 rows above and 6 columns each side."""
+    if not (0 <= dy_max <= 4 and 0 <= dx_max <= 6):
+        raise ValueError(f"{name}: the kernel takes dy_max <= 4 and "
+                         f"dx_max <= 6, got {dy_max} and {dx_max}")
+
+
 def window_dedupe(kg: torch.Tensor, dy_max: int = 4, dx_max: int = 6,
                   plain: bool = False) -> torch.Tensor:
     """K1 (replaces `_window_dedupe_kernel`, rt3d/geometry/pallas_ops.py):
-    (H, W) int32 keys with window duplicates replaced by the sentinel."""
+    (H, W) int32 keys with window duplicates replaced by the sentinel. The
+    kernel takes windows of up to 4 rows above and 6 columns each side."""
     if not kernels.use_kernel(kg, plain):
         return window_dedupe_plain(kg, dy_max, dx_max)
     kernels.check(kg, torch.int32, (-1, -1), "window_dedupe keys")
+    _check_window("window_dedupe", dy_max, dx_max)
     h, w = kg.shape
     out = torch.empty_like(kg)
     kernels.launch("window_dedupe", "rt3d_window_dedupe", kg.data_ptr(),
@@ -298,9 +307,7 @@ def window_prev_or(kg: torch.Tensor, wg: torch.Tensor, dy_max: int = 4,
         return window_prev_or_plain(kg, wg, dy_max, dx_max)
     kernels.check(kg, torch.int32, (-1, -1), "window_prev_or keys")
     kernels.check(wg, torch.int32, tuple(kg.shape), "window_prev_or words")
-    if not (0 <= dy_max <= 4 and 0 <= dx_max <= 6):
-        raise ValueError(f"window_prev_or: the kernel takes dy_max <= 4 and "
-                         f"dx_max <= 6, got {dy_max} and {dx_max}")
+    _check_window("window_prev_or", dy_max, dx_max)
     h, w = kg.shape
     out = torch.empty_like(kg)
     kernels.launch("window_prev_or", "rt3d_window_prev_or", kg.data_ptr(),

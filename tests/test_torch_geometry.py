@@ -87,6 +87,49 @@ def test_window_kernels_match_xla_any_width_and_words(rng):
         N(jops._window_prev_or(jnp.asarray(kg), jnp.asarray(wg), 4, 6)))
 
 
+def _banded_key_grid(rng, h, w):
+    """Keys with image locality (runs of equal keys over 2 x 3 pixels),
+    sentinel in whole bands of 8 rows (the Pallas kernel's blocks) and in a
+    column band, as the workspace grids have them."""
+    r, c = np.arange(h)[:, None], np.arange(w)[None, :]
+    kg = (r // 2 * 4096 + c // 3 + rng.integers(0, 2, size=(h, w))).astype(np.int32)
+    sent = (((r // 8) % 3 == 1) | ((c >= 64) & (c < 128) & ((r // 8) % 3 == 0))
+            | (rng.uniform(size=(h, w)) < 0.02))
+    kg[sent] = SENT
+    return kg
+
+
+@pytest.mark.parametrize("dy,dx", [(4, 6), (1, 2)])
+@pytest.mark.parametrize("h,w", [(24, 128), (40, 256)])
+def test_window_dedupe_banded_matches_pallas_and_xla(rng, h, w, dy, dx):
+    """K1's plain version on a grid with all-sentinel Pallas blocks beside
+    live ones (both branches of the Pallas kernel run) equals the Pallas
+    kernel in interpret mode and the XLA form."""
+    kg = _banded_key_grid(rng, h, w)
+    live_blocks = (kg != SENT).reshape(h // 8, -1).any(1)
+    assert live_blocks.any() and not live_blocks.all()
+    got = N(ops.window_dedupe(T(kg), dy, dx))
+    pal = pallas_ops.window_dedupe_pallas(jnp.asarray(kg), SENT, dy, dx, interpret=True)
+    xla = jnp.where(jops._window_duplicate_mask(jnp.asarray(kg), dy, dx), SENT, kg)
+    assert pal is not None
+    np.testing.assert_array_equal(got, N(pal))
+    np.testing.assert_array_equal(got, N(xla))
+    assert (got == SENT).sum() > (kg == SENT).sum()
+
+
+@pytest.mark.parametrize("dy,dx", [(5, 6), (4, 7), (6, 9)])
+def test_window_wrappers_take_wide_windows_on_cpu(rng, dy, dx):
+    """The kernels stop at 4 x 6; on the CPU the wrappers take any window
+    and equal the XLA form there."""
+    kg, wg = _key_grid(rng, 20, 40, nkeys=12)
+    np.testing.assert_array_equal(
+        N(ops.window_dedupe(T(kg), dy, dx)),
+        N(jnp.where(jops._window_duplicate_mask(jnp.asarray(kg), dy, dx), SENT, kg)))
+    np.testing.assert_array_equal(
+        N(ops.window_prev_or(T(kg), T(wg), dy, dx)),
+        N(jops._window_prev_or(jnp.asarray(kg), jnp.asarray(wg), dy, dx)))
+
+
 def test_cpu_wrappers_launch_nothing(rng):
     kernels.reset_launches()
     kg, wg = _key_grid(rng, 8, 16)

@@ -336,9 +336,48 @@ def test_window_prev_or_sparse_grids(gen, h, w, sent_words):
     assert torch.equal(got, ops.window_prev_or(kg, wg, plain=True))
 
 
-def test_window_prev_or_rejects_large_window(gen):
+@pytest.mark.parametrize("window", [(5, 6), (4, 7), (-1, 6)])
+@pytest.mark.parametrize("kernel", ["window_dedupe", "window_prev_or"])
+def test_window_kernels_reject_large_window(gen, kernel, window):
+    """K1 and K2 take windows up to 4 x 6 on the card and raise beyond,
+    before any launch."""
     kg = _keys(gen, 16, 16)
+    args = (kg,) if kernel == "window_dedupe" else (kg, kg)
+    before = kernels.LAUNCHES[kernel]
     with pytest.raises(ValueError):
-        ops.window_prev_or(kg, kg, 5, 6)
-    with pytest.raises(ValueError):
-        ops.window_prev_or(kg, kg, 4, 7)
+        getattr(ops, kernel)(*args, *window)
+    assert kernels.LAUNCHES[kernel] == before
+
+
+def _step_like_grid(gen, h, w, kind):
+    """Keys with the step's locality (runs of equal keys over 2 x 3 pixels):
+    "banded" makes 45 % of them sentinel in whole row bands and a column
+    band, so all-sentinel tiles lie next to dense ones, as the workspace
+    grids have them; "all_sentinel" and "no_sentinel" as named."""
+    r = torch.arange(h, device="cuda")[:, None]
+    c = torch.arange(w, device="cuda")[None, :]
+    kg = (r // 2 * 4096 + c // 3).to(torch.int32)
+    kg = kg + torch.randint(0, 2, (h, w), device="cuda", generator=gen, dtype=torch.int32)
+    if kind == "no_sentinel":
+        return kg
+    if kind == "all_sentinel":
+        return torch.full_like(kg, ops.INT_SENTINEL)
+    sent = ((r // 8) % 20 < 6) | ((c >= 128) & (c < 256) & (r // 8 % 2 == 1))
+    sent = sent | (torch.rand((h, w), device="cuda", generator=gen) < 0.02)
+    return torch.where(sent, ops.INT_SENTINEL, kg).to(torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["banded", "all_sentinel", "no_sentinel"])
+@pytest.mark.parametrize("h,w", [(360, 640), (37, 53), (45, 131), (3, 5), (16, 128)])
+def test_window_dedupe_equals_plain(gen, h, w, kind):
+    """K1 on grids shaped like the step's, with whole sentinel bands, and on
+    all-sentinel and sentinel-free grids, at widths that are and are not
+    multiples of 4 and of the tile, for every window up to 4 x 6: bit for
+    bit its plain version, one launch a call."""
+    kg = _step_like_grid(gen, h, w, kind)
+    for dy in range(5):
+        for dx in (0, 1, 6):
+            before = kernels.LAUNCHES["window_dedupe"]
+            got = ops.window_dedupe(kg, dy, dx)
+            assert kernels.LAUNCHES["window_dedupe"] == before + 1
+            assert torch.equal(got, ops.window_dedupe(kg, dy, dx, plain=True)), (dy, dx)
