@@ -43,6 +43,14 @@ Phases, each printing its wall seconds:
   8. the 1-cam preset (`reference_1cam_config`, yolo11l-seg), 4 frames,
      counters checked per step, then its plain run compared, then K1, K2
      and K4 on its own inputs as in 4c;
+  8b. the replay driver: 12 HD720 frames of the 2cam preset's scene
+     recorded to an .rts file (camera 1 of frame 5 failed, status 7), then
+     `python -m rt3d_torch.apps.two_cam` called in-process on it (x model,
+     pipeline depth 2, the C++ replayer built from native/replayer.cpp),
+     its CSVs checked; then `PipelineDriver` at depth 1, depth 2 and four
+     frames a call, and profile mode over 4 frames, each held bit for bit
+     against plain `Pipeline.step` calls on the good frames, with its launch
+     counts per step run and no thread left behind;
   9. every preset in float32 (TF32 off) over the frames of its JAX golden
      (`tests/golden_torch/`, from `tools/make_torch_golden.py`), held
      against it within the bands of `rt3d_torch/golden.py`; then its usual
@@ -65,6 +73,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 8
 FRAMES_1CAM = 4
+REPLAY_FRAMES = 12
+REPLAY_BAD = 5  # camera 1 of this frame fails in the recording
 WARMUP_FRAMES = 2
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 # H100 SXM at 1.98 GHz: 132 SMs x 128 FP32 lanes issue 33.5e12 unfused f32
@@ -819,6 +829,186 @@ def check_slot_fallback(torch, gen):
                     for name, (ms, peak) in out.items()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 8b: the replay driver and the two_cam app
+# ---------------------------------------------------------------------------
+
+
+def same_outputs(torch, a, b):
+    """True when two `FrameOutputs` hold equal tensors everywhere."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(same_outputs(torch, getattr(a, f), getattr(b, f))
+               for f in a.__dataclass_fields__)
+
+
+def record_replay(np, path):
+    """`REPLAY_FRAMES` frames of the 2cam preset's synthetic scene written
+    with the port's recorder; camera 1 of frame `REPLAY_BAD` has status 7."""
+    from rt3d_torch.io import write_sequence
+    from rt3d_torch.io.format import camera_meta
+    from rt3d_torch.pipeline.presets import preset_source
+
+    src = preset_source("2cam", REPLAY_FRAMES)
+    pkts = [src.get(i) for i in range(REPLAY_FRAMES)]
+    status = np.zeros((REPLAY_FRAMES, 2), np.uint32)
+    status[REPLAY_BAD, 1] = 7
+    meta = {"cameras": [
+        camera_meta(c.intrinsics.fx, c.intrinsics.fy, c.intrinsics.cx, c.intrinsics.cy,
+                    [list(r) for r in c.extrinsics.rotation], list(c.extrinsics.translation),
+                    serial=c.serial, fps=c.fps) for c in src.cameras()],
+        "generator": "chip_smoke.py"}
+    return write_sequence(path, np.stack([p.rgb for p in pkts]),
+                          np.stack([p.depth for p in pkts]), meta, status)
+
+
+def run_app(torch, tmp, path, per_step, steps):
+    """`rt3d_torch.apps.two_cam.main` in-process on the recording, as a user
+    runs it; checks its exit code, replay backend, CSVs and launches.
+    Returns its printed numbers and launches."""
+    import contextlib
+    import csv
+    import io
+
+    from rt3d_torch import kernels
+    from rt3d_torch.apps import two_cam
+
+    log_dir = os.path.join(tmp, "runs")
+    argv = ["--source", path, "--variant", "x",
+            "--weights", os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz"),
+            "--frames", str(REPLAY_FRAMES), "--warmup", "2", "--pipeline-depth", "2",
+            "--device", "cuda", "--log-dir", log_dir]
+    out = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(out):
+        rc = two_cam.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"  two_cam: {line}")
+    check(rc == 0, f"two_cam exited {rc}")
+    check("(replay, backend native)" in text, "two_cam did not replay through the native replayer")
+    with open(os.path.join(log_dir, "fps_log.csv")) as f:
+        fps_rows = list(csv.reader(f))
+    with open(os.path.join(log_dir, "timings.csv")) as f:
+        timing_rows = list(csv.reader(f))
+    check(fps_rows[0] == ["Timestamp", "FPS"] and len(fps_rows) == 1 + steps,
+          f"fps_log.csv: {len(fps_rows) - 1} rows for {steps} good frames")
+    rows = {r[0]: r[1].split(",") for r in timing_rows[1:]}
+    # as in the JAX driver: a total per good frame, a retrieval per frame read
+    check(timing_rows[0] == ["Step", "Timings"]
+          and len(rows.get("Total Time per Iteration", ())) == steps
+          and len(rows.get("Frame Retrieval", ())) == REPLAY_FRAMES,
+          "timings.csv is not the reference schema with a total per good frame")
+    for name, n in per_step.items():
+        check(launches[name] == n * steps,
+              f"two_cam: {name} launched {launches[name]} times over {steps} steps")
+    fps = dict(kv.split("=") for kv in text.split("frames=", 1)[1].splitlines()[0].split()[1:])
+    return {"mean_fps": float(fps["mean_fps"]), "median_fps": float(fps["median"]),
+            "max_fps": float(fps["max"])}, launches
+
+
+def check_replay(torch, np, per_step):
+    """Phase 8b: record, run the two_cam app, then hold `PipelineDriver` in
+    every mode against plain steps of the good frames. Returns the numbers
+    per mode and the app's launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from rt3d_torch import kernels
+    from rt3d_torch.apps.common import adopt_source_calibration
+    from rt3d_torch.config import reference_2cam_config
+    from rt3d_torch.io import ReplaySource
+    from rt3d_torch.pipeline.presets import preset_weights
+    from rt3d_torch.pipeline.step import build_pipeline
+    from rt3d_torch.runtime import PipelineDriver
+
+    threads = threading.active_count()
+    good = [i for i in range(REPLAY_FRAMES) if i != REPLAY_BAD]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="rt3d_replay_")
+    try:
+        t = time.perf_counter()
+        path = os.path.join(tmp, "seq.rts")
+        spec = record_replay(np, path)
+        log(f"  recorded {spec.n_frames} frames x {spec.n_cams} cams @ {spec.height}x"
+            f"{spec.width}, {os.path.getsize(path) / 1e6:.1f} MB, in "
+            f"{time.perf_counter() - t:.2f} s")
+        res = {}
+        torch.cuda.reset_peak_memory_stats()
+        res["two_cam app"], app_launches = run_app(torch, tmp, path, per_step, len(good))
+        res["two_cam app"]["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        src = ReplaySource(path)
+        try:
+            check(src.backend == "native", f"replay backend is {src.backend}")
+            pipe = build_pipeline(adopt_source_calibration(reference_2cam_config(), src),
+                                  weights=preset_weights("2cam"))
+            state, calib = pipe.init_state(), pipe.calib()
+            plain = {}
+            for i in good:
+                pkt = src.get(i)
+                state, plain[i] = pipe.step(state, torch.from_numpy(pkt.rgb).cuda(),
+                                            torch.from_numpy(pkt.depth).cuda(), calib)
+            check(sum(int(o.detections.valid.sum()) for o in plain.values()) > 0,
+                  "replay: no detection in any frame")
+            modes = (("fused, depth 1", dict(pipeline_depth=1), REPLAY_FRAMES, good),
+                     ("fused, depth 2", dict(pipeline_depth=2), REPLAY_FRAMES, good),
+                     ("scan, 4 frames a call", dict(frames_per_dispatch=4), REPLAY_FRAMES,
+                      list(range(REPLAY_FRAMES))),
+                     ("profile", dict(mode="profile"), 4, list(range(4))))
+            for name, kw, n, stepped in modes:
+                seen = []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launches()
+                drv = PipelineDriver(pipe, **kw)
+                r = drv.run(src, n, warmup=2 if n > 4 else 1,
+                            on_frame=lambda i, o: seen.append((i, o)))
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                expect = [i for i in range(n) if i != REPLAY_BAD]
+                check([i for i, _ in seen] == expect, f"{name}: on_frame saw {[i for i, _ in seen]}")
+                check(r.skipped_frames == (1 if n > REPLAY_BAD else 0),
+                      f"{name}: skipped {r.skipped_frames} frames")
+                for i, o in seen:
+                    check(same_outputs(torch, o, plain[i]),
+                          f"{name}: frame {i} differs from plain Pipeline.step calls")
+                for k, per in per_step.items():
+                    check(launches[k] == per * len(stepped),
+                          f"{name}: {k} launched {launches[k]} times over {len(stepped)} steps")
+                if kw.get("mode") == "profile":
+                    for stage in ("Frame Retrieval", "YOLO11 Inference", "Mask Processing",
+                                  "Point Cloud Processing", "Point Cloud Fusion",
+                                  "Subtraction", "Total Time per Iteration"):
+                        check(r.summary_ms.get(stage, 0.0) > 0, f"profile: stage {stage} not timed")
+                res[name] = dict(mean_fps=r.mean_fps, median_fps=r.median_fps,
+                                 max_fps=r.max_fps, summary_ms=r.summary_ms,
+                                 peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                                 steps=len(stepped))
+                del seen, drv
+            del plain, pipe, state
+        finally:
+            src.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(threading.active_count() == threads,
+          f"{threading.active_count() - threads} threads left behind by the replay phase")
+    for name, r in res.items():
+        log(f"  {name}: mean fps {r['mean_fps']:.2f}, median {r['median_fps']:.2f}, max "
+            f"{r['max_fps']:.2f}, peak memory {r['peak_mib']:.1f} MiB"
+            + (f", summary ms {json.dumps({k: round(v, 3) for k, v in r['summary_ms'].items()})}"
+               if "summary_ms" in r else ""))
+    return res, app_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -919,6 +1109,13 @@ def main() -> int:
     for key in drop:
         runs["1cam"].pop(key)
 
+    # 8b. the replay driver and the two_cam app
+    t = time.perf_counter()
+    replay, launches_replay = check_replay(torch, np, {
+        **none, "window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1,
+        "min_sqdist": 1})
+    phase("replay driver", t)
+
     # 9. every preset against the JAX golden
     t = time.perf_counter()
     gold = check_golden(torch)
@@ -926,6 +1123,7 @@ def main() -> int:
 
     launches = {name: dict(r["launches"]) for name, r in runs.items()}
     launches["sor_entry"] = sor_entry
+    launches["replay"] = launches_replay
     step_rows["2cam"]["sor_knn_slots"] = slot_row
     out_rows = []
     for r in rows:
@@ -941,7 +1139,8 @@ def main() -> int:
             **({"step_inputs": steps} if steps else {})))
     log(json.dumps({"presets": {name: {k: r[k] for k in ("steady_ms", "fps", "peak_mib",
                                                           "plain_ms")}
-                                for name, r in runs.items()}}))
+                                for name, r in runs.items()},
+                    "replay": replay}))
     log(json.dumps({"golden": gold}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))

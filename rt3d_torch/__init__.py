@@ -5,6 +5,10 @@ imports. The main path is `rt3d_torch.pipeline.step.Pipeline.step` (two
 HD720 cameras, YOLO11-seg, ByteTrack, voxel clouds, fusion, subtraction);
 its hot geometry ops (and the single-cloud SOR of `geometry.sor`) run as
 hand-written CUDA kernels (`rt3d_torch/csrc/`), built by one `nvcc` per
-source at first use on a CUDA tensor. Entry points default to ``device="cuda"``; CPU tensors take each
-kernel's plain PyTorch version.
+source at first use on a CUDA tensor. Users reach it through the CLIs of
+`rt3d_torch.apps` (`record` a sequence, then `two_cam` / `one_cam` on it),
+which replay `.rts` recordings (`rt3d_torch.io.ReplaySource`, over the C++
+replayer of `native/replayer.cpp`) through `rt3d_torch.runtime`'s
+`PipelineDriver` and write the reference's CSV logs. Entry points default
+to ``device="cuda"``; CPU tensors take each kernel's plain PyTorch version.
 """

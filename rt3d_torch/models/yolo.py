@@ -362,10 +362,16 @@ def state_dict_from_npz(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
 
 
 def load_weights(model: YoloSeg, path: str) -> YoloSeg:
-    """Load a JAX-package ``.npz`` weight file into `model` (strict)."""
-    with np.load(path) as z:
-        sd = state_dict_from_npz({k: z[k] for k in z.files})
-    model.load_state_dict(sd, strict=True)
+    """Load a JAX-package ``.npz`` weight file, or an ultralytics ``.pt``
+    checkpoint through `rt3d_torch.models.convert`, into `model` (strict)."""
+    if path.endswith(".pt"):
+        from rt3d_torch.models.convert import convert_checkpoint
+
+        flat = convert_checkpoint(path, model)
+    else:
+        with np.load(path) as z:
+            flat = {k: z[k] for k in z.files}
+    model.load_state_dict(state_dict_from_npz(flat), strict=True)
     return model
 
 

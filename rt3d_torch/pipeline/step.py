@@ -4,9 +4,9 @@ Stages, in order: letterbox preprocess, YOLO11-seg forward, DFL decode and
 fixed-shape NMS (then, when `dedupe_center_px > 0`, centre-distance
 suppression), ByteTrack (one tracker per camera), retina masks (eroded when
 `erode_kernel > 0`), per-object clouds (packed mask-voxel dedupe, kernel
-K2), workspace clouds (grid voxel dedupe, K1), centroid fusion with
-slot-batched SOR (K3), the Morton-window SOR of the fused workspace cloud
-when `workspace_sor` is on, and min-distance subtraction (K4).
+K2), workspace clouds (grid voxel dedupe, K1) with, when `workspace_sor`
+is on, the Morton-window SOR of their fused cloud, centroid fusion with
+slot-batched SOR (K3), and min-distance subtraction (K4).
 
 Inputs and outputs keep the JAX package's layouts: rgb (C, H, W, 3) uint8
 BGR and depth (C, H, W) f32 on the pipeline's device, per-camera results
@@ -18,8 +18,9 @@ the `with_reid` and `gmc` flags, as the JAX package does.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import contextlib
+from dataclasses import dataclass, fields
+from typing import Callable, ContextManager, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +88,29 @@ class FrameOutputs:
     workspace: PointBuffer        # subtracted workspace cloud
     per_camera_objects: ObjectSet  # leading camera axis (pre-fusion)
     overflow: torch.Tensor        # () int32 total dropped-point count
+
+
+def _map_tree(fn: Callable, *trees):
+    """`fn` over the tensors of equal-shaped trees of `FrameOutputs`,
+    `Detections`, `ObjectSet` and `PointBuffer` (dataclasses of tensors)."""
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+    return type(trees[0])(**{f.name: _map_tree(fn, *(getattr(t, f.name) for t in trees))
+                             for f in fields(trees[0])})
+
+
+def _stack_outputs(outs: Sequence[FrameOutputs]) -> FrameOutputs:
+    """Frame outputs stacked on a new leading frame axis."""
+    return _map_tree(lambda *xs: torch.stack(xs), *outs)
+
+
+def index_outputs(out: FrameOutputs, j: int) -> FrameOutputs:
+    """Frame `j` of outputs with a leading frame axis (`Pipeline.step_scan`)."""
+    return _map_tree(lambda x: x[j], out)
+
+
+def _no_stage(name: str) -> ContextManager:
+    return contextlib.nullcontext()
 
 
 def _stack_objects(sets) -> ObjectSet:
@@ -268,33 +292,63 @@ class Pipeline:
     # -- the fused step -------------------------------------------------
 
     def step(self, state: PipelineState, rgb: torch.Tensor, depth: torch.Tensor,
-             calib: CameraCalib) -> Tuple[PipelineState, FrameOutputs]:
+             calib: CameraCalib, stage: Optional[Callable[[str], ContextManager]] = None
+             ) -> Tuple[PipelineState, FrameOutputs]:
         """One frame of every camera: rgb (C, H, W, 3) uint8 BGR, depth
-        (C, H, W) f32 meters, both on the pipeline's device."""
+        (C, H, W) f32 meters, both on the pipeline's device.
+
+        `stage(name)`, when given, returns a context entered around each of
+        the reference's stage groups, under its `timings.csv` name (the
+        driver's profile mode times them); it does not change the outputs."""
+        stage = stage or _no_stage
         with torch.no_grad():
-            images = self.preprocess(rgb)
-            det, protos = self.detect(images)
-            state, ids = self.track(state, det)
-            masks = self.masks(protos, det)
-            per_cam, obj_ovf = self.object_clouds(depth, masks, det, ids, calib)
-            ws, ws_ovf = self.workspace_clouds(depth, calib)
-            fused, flat, flat_ovf = self.fuse(per_cam)
-            ws_all = PointBuffer(points=ws.points.reshape(-1, 3),
-                                 valid=ws.valid.reshape(-1))
-            ws_out = self.subtract(self.workspace_sor(ws_all), flat)
+            with stage("YOLO11 Inference"):
+                images = self.preprocess(rgb)
+                det, protos = self.detect(images)
+                state, ids = self.track(state, det)
+            with stage("Mask Processing"):
+                masks = self.masks(protos, det)
+                per_cam, obj_ovf = self.object_clouds(depth, masks, det, ids, calib)
+            with stage("Point Cloud Processing"):
+                ws, ws_ovf = self.workspace_clouds(depth, calib)
+                ws_all = self.workspace_sor(PointBuffer(points=ws.points.reshape(-1, 3),
+                                                        valid=ws.valid.reshape(-1)))
+            with stage("Point Cloud Fusion"):
+                fused, flat, flat_ovf = self.fuse(per_cam)
+            with stage("Subtraction"):
+                ws_out = self.subtract(ws_all, flat)
             overflow = obj_ovf.sum(dtype=torch.int32) + ws_ovf.sum(dtype=torch.int32) \
                 + flat_ovf.to(torch.int32)
         return state, FrameOutputs(
             detections=det, track_ids=ids, objects=fused, objects_flat=flat,
             workspace=ws_out, per_camera_objects=per_cam, overflow=overflow)
 
+    def step_scan(self, state: PipelineState, rgb: torch.Tensor, depth: torch.Tensor,
+                  calib: CameraCalib, good: Sequence[bool]
+                  ) -> Tuple[PipelineState, FrameOutputs]:
+        """K frames in order (the JAX package's `lax.scan` over `step`): rgb
+        (K, C, H, W, 3), depth (K, C, H, W), `good` a host (K,) bool mask.
+        A frame with ``good[k]`` False computes its outputs from the state
+        before it and leaves that state unchanged. Outputs carry a leading K
+        axis (`index_outputs` takes frame k). Keeping the old state is
+        sound because `step` builds new state tensors and never writes into
+        the ones it is given."""
+        outs = []
+        for k in range(rgb.shape[0]):
+            new, out = self.step(state, rgb[k], depth[k], calib)
+            if good[k]:
+                state = new
+            outs.append(out)
+        return state, _stack_outputs(outs)
+
 
 def build_pipeline(cfg: Optional[Config] = None, weights: Optional[str] = None,
                    device="cuda", seed: int = 0,
                    plain_kernels: bool = False) -> Pipeline:
     """The pipeline for `cfg` on `device`: YOLO weights from a JAX-package
-    ``.npz`` (`weights`, else `cfg.model.weights`), else random from
-    `seed`; parameters cast to `cfg.model.compute_dtype`.
+    ``.npz`` or an ultralytics ``.pt`` (`weights`, else
+    `cfg.model.weights`), else random from `seed`; parameters cast to
+    `cfg.model.compute_dtype`.
     ``plain_kernels=True`` swaps every kernel for its plain PyTorch version;
     it exists for comparisons and is never the default."""
     cfg = cfg or Config()

@@ -10,8 +10,10 @@ frames, then
 
 * times every stage of `Pipeline.step` on its own, with a synchronize
   before and after it: device ms from CUDA events and host wall ms;
-* profiles whole steps with `torch.profiler` and prints the operators with
-  the most device time and the device's busy share of the wall time.
+* profiles two whole steps with `torch.profiler`
+  (`rt3d_torch.runtime.profile_op_times`, after one untraced pair) and
+  prints the kernels with the most device time and the device's busy share
+  of the traced wall time.
 
 The last line of standard output is one JSON object with these numbers.
 Needs a CUDA device.
@@ -29,6 +31,7 @@ import torch
 
 from rt3d_torch.geometry.ops import PointBuffer
 from rt3d_torch.pipeline.presets import PRESETS, synthetic_preset
+from rt3d_torch.runtime.profiling import format_op_times, profile_op_times
 
 
 def _staged_step(pipe, state, rgb, depth, calib, record):
@@ -91,20 +94,22 @@ def main() -> None:
         print(f"{k:18s} device {v['device_ms']:8.3f} ms   wall {v['wall_ms']:8.3f} ms",
               flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-
     steps = frames[2:4]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def two_steps():
+        nonlocal state
         t = time.perf_counter()
         for rgb, depth in steps:
             state, _ = pipe.step(state, rgb, depth, calib)
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:20]
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20), flush=True)
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    busy_ms, per_op = profile_op_times(two_steps, iters=1)
+    prof_wall_ms = walls[-1]  # the traced call
+    print(format_op_times(busy_ms / len(steps), {k: v / len(steps) for k, v in per_op.items()}),
+          flush=True)
+    ops = sorted(per_op.items(), key=lambda kv: -kv[1])[:20]
     result = {
         "card": smi,
         "preset": args.preset,
@@ -113,8 +118,7 @@ def main() -> None:
         "profiled_wall_ms_per_step": prof_wall_ms / len(steps),
         "device_busy_ms_per_step": busy_ms / len(steps),
         "device_busy_share": busy_ms / prof_wall_ms,
-        "top_ops": [{"name": e.key, "device_ms_per_step": e.self_device_time_total / 1e3 / len(steps),
-                     "calls_per_step": e.count / len(steps)} for e in ops],
+        "top_ops": [{"name": k, "device_ms_per_step": v / len(steps)} for k, v in ops],
     }
     print(json.dumps(result), flush=True)
 

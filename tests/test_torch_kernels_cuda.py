@@ -381,3 +381,104 @@ def test_window_dedupe_equals_plain(gen, h, w, kind):
             got = ops.window_dedupe(kg, dy, dx)
             assert kernels.LAUNCHES["window_dedupe"] == before + 1
             assert torch.equal(got, ops.window_dedupe(kg, dy, dx, plain=True)), (dy, dx)
+
+
+# ---------------------------------------------------------------------------
+# The replay driver on the card
+# ---------------------------------------------------------------------------
+
+
+class _BadFrame:
+    """A synthetic source whose camera 1 fails (status 7) at frame `bad`."""
+
+    def __init__(self, src, bad):
+        self.src, self.bad = src, bad
+
+    def get(self, i):
+        pkt = self.src.get(i)
+        if i == self.bad:
+            pkt.status = pkt.status.copy()
+            pkt.status[1] = 7
+        return pkt
+
+
+def _small_pipeline():
+    """The committed n weights on two synthetic cameras at 240x320, model
+    input (192, 256), 1 cm voxels and small capacities, bf16 as on the card."""
+    import os
+
+    from rt3d_torch.config import Config, ModelConfig, PipelineConfig, TrackerConfig, with_cameras
+    from rt3d_torch.io import SyntheticSource
+    from rt3d_torch.pipeline.step import build_pipeline
+
+    src = SyntheticSource(num_cameras=2, num_frames=6, hw=(240, 320), num_objects=2)
+    cfg = with_cameras(Config(
+        model=ModelConfig(variant="n", input_hw=(192, 256), max_detections=4,
+                          nms_pre_topk=16, conf_thresh=0.05, class_filter=()),
+        tracker=TrackerConfig(max_tracks=16),
+        pipeline=PipelineConfig(voxel_size=0.01, max_points_per_object=256,
+                                max_points_fused_object=512, max_points_workspace=4096,
+                                max_points_workspace_fused=8192, max_objects_fused=8)),
+        src.cameras())
+    weights = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "weights", "yolo11n_synth_seg.npz")
+    return build_pipeline(cfg, weights=weights), src
+
+
+def test_driver_upload_is_waited_for(gen):
+    """The uploader's pinned, side-stream copies land before the compute
+    stream reads them: its event is recorded, the compute stream waits on
+    it, and what arrives equals the host arrays."""
+    import numpy as np
+
+    from rt3d_torch.runtime import PipelineDriver
+
+    pipe, _ = _small_pipeline()
+    drv = PipelineDriver(pipe)
+    rng = np.random.default_rng(0)
+    host = (rng.integers(0, 255, (2, 720, 1280, 3), dtype=np.uint8),
+            rng.uniform(0.3, 3.0, (2, 720, 1280)).astype(np.float32))
+    side = torch.cuda.Stream()
+    (rgb, depth), ready = drv._upload(host, side)
+    assert isinstance(ready, torch.cuda.Event) and rgb.is_cuda and depth.is_cuda
+    drv._adopt((rgb, depth), ready)
+    total = rgb.to(torch.int64).sum() + depth.double().sum()  # on the compute stream
+    want = int(host[0].astype(np.int64).sum()) + float(host[1].astype(np.float64).sum())
+    assert abs(float(total) - want) < 1e-6 * abs(want)
+    assert torch.equal(rgb.cpu(), torch.from_numpy(host[0]))
+
+
+def test_driver_depths_and_scan_agree_on_card(gen):
+    """Depth 1, depth 2 and two frames a call give the same outputs bit for
+    bit on the card, skip the bad frame, and launch K1, K2 and K4 on every
+    step they run (scan mode also steps the bad frame)."""
+    from rt3d_torch.runtime import PipelineDriver
+
+    pipe, src = _small_pipeline()
+    runs = {}
+    for name, kw, steps in (("depth1", dict(pipeline_depth=1), 4),
+                            ("depth2", dict(pipeline_depth=2), 4),
+                            ("scan2", dict(frames_per_dispatch=2), 5)):
+        seen = []
+        kernels.reset_launches()
+        res = PipelineDriver(pipe, **kw).run(_BadFrame(src, 2), 5, warmup=1,
+                                             on_frame=lambda i, o: seen.append((i, o)))
+        torch.cuda.synchronize()
+        assert res.skipped_frames == 1 and [i for i, _ in seen] == [0, 1, 3, 4]
+        for k, per in (("window_dedupe", 2), ("window_prev_or", 2), ("min_sqdist", 1)):
+            assert kernels.LAUNCHES[k] == per * steps, (name, k)
+        runs[name] = seen
+    for name in ("depth2", "scan2"):
+        for (_, a), (_, b) in zip(runs[name], runs["depth1"]):
+            assert torch.equal(a.detections.boxes, b.detections.boxes), name
+            assert torch.equal(a.track_ids, b.track_ids), name
+            assert torch.equal(a.objects.points, b.objects.points), name
+            assert torch.equal(a.workspace.valid, b.workspace.valid), name
+
+
+def test_profile_op_times_on_card(gen):
+    from rt3d_torch.runtime import profile_op_times
+
+    x = torch.rand(1 << 20, device="cuda", generator=gen)
+    total, per_op = profile_op_times(lambda: (x * 2).sum(), iters=3)
+    assert total > 0 and per_op and all(v >= 0 for v in per_op.values())
