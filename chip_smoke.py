@@ -51,10 +51,23 @@ Phases, each printing its wall seconds:
      frames a call, and profile mode over 4 frames, each held bit for bit
      against plain `Pipeline.step` calls on the good frames, with its launch
      counts per step run and no thread left behind;
-  9. every preset in float32 (TF32 off) over the frames of its JAX golden
-     (`tests/golden_torch/`, from `tools/make_torch_golden.py`), held
-     against it within the bands of `rt3d_torch/golden.py`; then its usual
-     bf16 step over the same frames, whose differences are printed only.
+  10. the presets of the 1 mm and tracker slice, 6 HD720 frames each with
+     counters checked per step and a plain run compared, as in phases 4-5:
+     `2cam_botsort` (BoT-SORT: ReID and affine GMC; its tracks must hold
+     features and its state grey images) and `2cam_deepsort` (K1-K4 as
+     2cam), then `stretch_4cam_1mm` (4 cameras, yolo11n-seg, 1 mm voxels,
+     raw-ray accumulation: K4 alone, once a frame); K4 on that step's own
+     last-frame inputs, 1 048 576 queries against 32 768 references, as
+     in 4c (the library call in blocks of 65 536 queries, the whole matrix
+     being 128 GiB); and `accumulate_voxels` on an evicting case (65 536
+     voxels, two folds of that step's subtracted workspace) against the
+     same calls on the CPU, then one fold into the step's accumulator
+     timed;
+  9. every preset (the six of phases 4-10) in float32 (TF32 off) over the
+     frames of its JAX golden (`tests/golden_torch/`, from
+     `tools/make_torch_golden.py`), held against it within the bands of
+     `rt3d_torch/golden.py`; then its usual bf16 step over the same
+     frames, whose differences are printed only.
 
 Fails (non-zero exit, no result line) when no CUDA device is present, when
 the port is missing beside this file, or when any check fails. The last
@@ -73,9 +86,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 8
 FRAMES_1CAM = 4
+FRAMES_SLICE = 6  # the stretch, BoT-SORT and DeepSORT presets
 REPLAY_FRAMES = 12
 REPLAY_BAD = 5  # camera 1 of this frame fails in the recording
 WARMUP_FRAMES = 2
+SLOW_MS = 100.0
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 # H100 SXM at 1.98 GHz: 132 SMs x 128 FP32 lanes issue 33.5e12 unfused f32
 # operations a second (the 67 TFLOP/s of the data sheet counts a fused
@@ -102,10 +117,18 @@ def time_ms(torch, fn, calls: int = 5, replays: int = 20, warmup: int = 3,
     calls; the median replay over `calls`. Replaying the graph keeps host
     launch overhead out of the kernel's time. With ``graph=False`` (for a
     function that reads back to the host) the calls run directly between
-    the events."""
-    for _ in range(warmup):
+    the events. A function whose last warm-up call took over `SLOW_MS` (the
+    plain version and the library call at the stretch step's 1 048 576
+    queries) is timed over 3 replays of one call."""
+    for _ in range(max(warmup, 1)):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         fn()
+        b.record()
     torch.cuda.synchronize()
+    if a.elapsed_time(b) > SLOW_MS:
+        calls, replays = 1, 3
 
     def run():
         for _ in range(calls):
@@ -484,7 +507,9 @@ def step_kernel_inputs(torch, run):
     grids, one per camera; the object voxels must equal the step's),
     `workspace_clouds` (K1's key grids), `workspace_sor` and
     `flatten_objects` (K4's queries and references; `subtract` on them must
-    give the step's keep mask)."""
+    give the step's keep mask, or with accumulation, folded into the
+    accumulator of the state before the frame, the step's published
+    workspace)."""
     from rt3d_torch.geometry import ops
     from rt3d_torch.geometry.fusion import flatten_objects
     from rt3d_torch.geometry.ops import PointBuffer
@@ -493,7 +518,7 @@ def step_kernel_inputs(torch, run):
     rgb, depth = run["frames"][-1]
     calib = pipe.calib()
     with torch.no_grad():
-        det, protos = pipe.detect(pipe.preprocess(rgb))
+        det, protos, _ = pipe.detect(pipe.preprocess(rgb))
         check(torch.equal(det.boxes, out.detections.boxes)
               and torch.equal(det.valid, out.detections.valid),
               "detect on the last frame again differs from the step's detections")
@@ -510,18 +535,23 @@ def step_kernel_inputs(torch, run):
         check(torch.equal(flat.points, out.objects_flat.points)
               and torch.equal(flat.valid, out.objects_flat.valid),
               "flatten_objects does not give the step's object buffer")
-        check(torch.equal(pipe.subtract(ws, flat).valid, out.workspace.valid),
-              "K4's rebuilt inputs do not give the step's keep mask")
+        ws_out = pipe.subtract(ws, flat)
+        _, published, _ = pipe.accumulate(run["prev"], ws_out)
+        check(torch.equal(published.valid, out.workspace.valid)
+              and torch.equal(published.points, out.workspace.points),
+              "K4's rebuilt inputs do not give the step's workspace")
     return dict(k1=[a[0] for a in k1], k2=[a[:2] for a in k2], ws=ws, flat=flat,
-                thr=pipe.cfg.pipeline.subtraction_threshold)
+                ws_out=ws_out, thr=pipe.cfg.pipeline.subtraction_threshold)
 
 
 def time_step_kernels(torch, run):
     """K1, K2 and K4 on the step's own inputs (`step_kernel_inputs`): each
-    against its plain version, timed beside its bound for those inputs."""
+    against its plain version, timed beside its bound for those inputs. The
+    subtracted workspace goes to ``run["ws_out"]``."""
     from rt3d_torch.geometry import ops, subtract
 
     x = step_kernel_inputs(torch, run)
+    run["ws_out"] = x["ws_out"]
     res = {"window_dedupe": [], "window_prev_or": []}
     for kg in x["k1"]:
         ref = ops.window_dedupe(kg, plain=True)
@@ -555,13 +585,21 @@ def time_step_kernels(torch, run):
     rvalid = r[rv]
     valid_pairs, kept_pairs = k4_pairs(torch, q, qv, r, rv, t2)
     nbytes = q.shape[0] * (12 + 1 + 4) + r.shape[0] * (12 + 1)
+    # the library call's (queries, valid refs) matrix, in blocks of queries
+    # when it would pass 2 GiB (1 TiB would not fit at the stretch shape)
+    block = q.shape[0] if q.shape[0] * rvalid.shape[0] * 4 <= 2**31 else 65536
+
+    def library():
+        return torch.cat([torch.cdist(q[i:i + block], rvalid).pow(2).amin(1)
+                          for i in range(0, q.shape[0], block)])
+
     res["min_sqdist"] = dict(
         queries=q.shape[0], valid_queries=int(qv.sum()), refs=r.shape[0],
         valid_refs=int(rv.sum()), valid_pairs=valid_pairs, kept_pairs=kept_pairs,
-        kept_share=kept_pairs / max(valid_pairs, 1),
+        kept_share=kept_pairs / max(valid_pairs, 1), library_query_block=block,
         ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, thr, qv)),
         plain_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, thr, qv, plain=True)),
-        library_ms=time_ms(torch, lambda: torch.cdist(q, rvalid).pow(2).amin(1)),
+        library_ms=time_ms(torch, library),
         exact_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, query_valid=qv)),
         **bound(nbytes, kept_pairs * 9),
         valid_pairs_bound_ms=bound(nbytes, valid_pairs * 9)["bound_ms"])
@@ -579,11 +617,57 @@ def log_step_kernels(name, res):
     v = res["min_sqdist"]
     log(f"  min_sqdist on {name}'s workspace ({v['valid_queries']} of {v['queries']} queries "
         f"valid) and objects ({v['valid_refs']} of {v['refs']} valid): kernel {v['ms']:.4f} ms, "
-        f"plain {v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms, bound "
+        f"plain {v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms "
+        f"(blocks of {v['library_query_block']} queries), bound "
         f"{fmt_bound(v)} over the {v['kept_share']:.4f} of "
         f"{v['valid_pairs']} valid pairs the box tests keep "
         f"({v['valid_pairs_bound_ms']:.5f} ms over all of them); without a threshold "
         f"{v['exact_ms']:.4f} ms")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the accumulator on the card
+# ---------------------------------------------------------------------------
+
+
+def check_accumulator(torch, run):
+    """`accumulate_voxels` on an evicting case, on the card against the
+    same calls on a CPU copy: an accumulator of 65536 voxels folds the
+    stretch step's last subtracted workspace twice (more voxels than it
+    holds): keys and overflow exact, weights within 1e-6 relative. Then one
+    fold of that workspace into the step's own accumulator (1 048 576
+    voxels) is timed, without a CUDA graph: the branch reads a count back."""
+    from rt3d_torch.geometry.voxel_sets import VoxelAccumulator, accumulate_voxels
+
+    p = run["pipe"].cfg.pipeline
+    ws = run["ws_out"]
+    kw = dict(voxel_size=p.voxel_size, bound_m=p.dedupe_bound_m, decay=p.accum_decay,
+              obs_weight=p.accum_obs_weight)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        acc, ovfs = VoxelAccumulator.empty(65536, dev), []
+        for _ in range(2):
+            acc, ovf = accumulate_voxels(acc, ws.points.to(dev), ws.valid.to(dev), **kw)
+            ovfs.append(int(ovf))
+        res[dev] = (acc, ovfs)
+    (g, govf), (c, covf) = res["cuda"], res["cpu"]
+    check(govf == covf and min(govf) > 0,
+          f"accumulator: overflow {govf} on the card, {covf} on the CPU")
+    check(torch.equal(g.keys_hi.cpu(), c.keys_hi) and torch.equal(g.keys_lo.cpu(), c.keys_lo),
+          "accumulator: the card's kept voxels differ from the CPU's")
+    rel = float(((g.weight.cpu() - c.weight).abs() / c.weight.abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-6, f"accumulator: weights differ by {rel} relative")
+    acc = run["prev"].accum
+    ms = time_ms(torch, lambda: accumulate_voxels(acc, ws.points, ws.valid, **kw), graph=False)
+    out = dict(evicting_overflow=govf, weight_max_rel=rel,
+               weights_bit_equal=torch.equal(g.weight.cpu(), c.weight),
+               input_rows=ws.points.shape[0], input_valid=int(ws.valid.sum()),
+               capacity=acc.capacity, fold_ms=ms)
+    log(f"  accumulator, capacity 65536, two folds of {out['input_valid']} points: overflow "
+        f"{govf} on both, keys equal, weights max relative difference {rel} (bit equal: "
+        f"{out['weights_bit_equal']}); one fold into the step's accumulator "
+        f"({acc.capacity} voxels): {ms:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -616,7 +700,8 @@ def check_golden(torch):
                 state, o = pipe.step(state, torch.from_numpy(pkt.rgb).cuda(),
                                      torch.from_numpy(pkt.depth).cuda(), calib)
                 outs.append(o)
-            rec = golden.record(outs, float(g["subtraction_threshold"]))
+            rec = golden.record(outs, float(g["subtraction_threshold"]),
+                                pipe.cfg.pipeline.workspace_accumulate)
             res[name][dtype or "usual"] = golden.measure(rec, g)
             del pipe, outs
         log(f"  {name}: {json.dumps(res[name])}")
@@ -635,7 +720,8 @@ def check_golden(torch):
 
 def run_path(torch, pipe, frames, per_step):
     """Step all frames in order; returns (per-frame event ms, wall s, host
-    copies of the outputs, launches per kernel, last frame's outputs)."""
+    copies of the outputs, launches per kernel, last frame's outputs, the
+    state the last frame was stepped from)."""
     from rt3d_torch import kernels
 
     state, calib = pipe.init_state(), pipe.calib()
@@ -650,6 +736,7 @@ def run_path(torch, pipe, frames, per_step):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        prev = state
         state, out = pipe.step(state, rgb, depth, calib)
         b.record()
         torch.cuda.synchronize()
@@ -659,7 +746,7 @@ def run_path(torch, pipe, frames, per_step):
             check(rose == n, f"frame {i}: {name} launched {rose} times, expected {n}")
         outs.append(host_outputs(out))
     wall = time.perf_counter() - t_wall
-    return ms, wall, outs, dict(kernels.LAUNCHES), out
+    return ms, wall, outs, dict(kernels.LAUNCHES), out, prev
 
 
 def host_outputs(out):
@@ -698,7 +785,7 @@ def run_preset(torch, np, name, n_frames, per_step):
     log(f"{name}: pipeline built and {n_frames} frames staged: "
         f"{time.perf_counter() - t:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    ms, wall, outs, launches, last = run_path(torch, pipe, frames, per_step)
+    ms, wall, outs, launches, last, prev = run_path(torch, pipe, frames, per_step)
     peak = torch.cuda.max_memory_allocated()
     total_dets = 0
     for i, o in enumerate(outs):
@@ -723,7 +810,7 @@ def run_preset(torch, np, name, n_frames, per_step):
 
     t = time.perf_counter()
     plain, _ = synthetic_preset(name, n_frames, plain_kernels=True)
-    pms, _, pouts, _, _ = run_path(torch, plain, frames, {n: 0 for n in per_step})
+    pms, _, pouts, _, _, _ = run_path(torch, plain, frames, {n: 0 for n in per_step})
     exact = ("classes", "det_valid", "track_ids", "pc_points", "pc_valid", "obj_points",
              "obj_valid", "obj_present", "flat_points", "flat_valid", "ws_points", "ws_valid")
     for i, (o, p) in enumerate(zip(outs, pouts)):
@@ -739,7 +826,7 @@ def run_preset(torch, np, name, n_frames, per_step):
     phase(f"{name} plain path", t)
     return dict(launches=launches, steady_ms=statistics.mean(steady), fps=fps,
                 peak_mib=peak / 2**20, plain_ms=statistics.mean(pms[WARMUP_FRAMES:]),
-                pipe=pipe, frames=frames, outs=outs, last=last)
+                pipe=pipe, frames=frames, outs=outs, last=last, prev=prev)
 
 
 def check_workspace_sor(torch, run):
@@ -1079,9 +1166,9 @@ def main() -> int:
     log_step_kernels("2cam", step_rows["2cam"])
     phase("2cam step inputs", t)
 
-    drop = ("pipe", "frames", "outs", "last")
+    drop = ("pipe", "frames", "outs", "last", "prev", "ws_out")
     for key in drop:
-        runs["2cam"].pop(key)
+        runs["2cam"].pop(key, None)
 
     # 6. the CPU-variant preset
     runs["2cam_cpu"] = run_preset(torch, np, "2cam_cpu", FRAMES, {
@@ -1097,7 +1184,7 @@ def main() -> int:
     check_slot_fallback(torch, gen)
     phase("sor entry points", t)
     for key in drop:
-        runs["2cam_cpu"].pop(key)
+        runs["2cam_cpu"].pop(key, None)
 
     # 8. the 1-cam preset
     runs["1cam"] = run_preset(torch, np, "1cam", FRAMES_1CAM, {
@@ -1107,7 +1194,7 @@ def main() -> int:
     log_step_kernels("1cam", step_rows["1cam"])
     phase("1cam step inputs", t)
     for key in drop:
-        runs["1cam"].pop(key)
+        runs["1cam"].pop(key, None)
 
     # 8b. the replay driver and the two_cam app
     t = time.perf_counter()
@@ -1115,6 +1202,33 @@ def main() -> int:
         **none, "window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1,
         "min_sqdist": 1})
     phase("replay driver", t)
+
+    # 10. the 1 mm stretch and the other trackers
+    slice_k = {**none, "window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1,
+               "min_sqdist": 1}
+    for name in ("2cam_botsort", "2cam_deepsort"):
+        runs[name] = run_preset(torch, np, name, FRAMES_SLICE, slice_k)
+        st = runs[name]["prev"]
+        check(all(bool((t.emb != 0).any()) for t in st.trackers),
+              f"{name}: no track holds an appearance feature")
+        check((name == "2cam_botsort") == bool((st.prev_gray != 0).any()),
+              f"{name}: GMC's grey images are not what the tracker asks for")
+        for key in drop:
+            runs[name].pop(key, None)
+    runs["stretch_4cam_1mm"] = run_preset(torch, np, "stretch_4cam_1mm", FRAMES_SLICE,
+                                          {**none, "min_sqdist": 1})
+    t = time.perf_counter()
+    step_rows["stretch_4cam_1mm"] = time_step_kernels(torch, runs["stretch_4cam_1mm"])
+    log_step_kernels("stretch_4cam_1mm", step_rows["stretch_4cam_1mm"])
+    v = step_rows["stretch_4cam_1mm"]["min_sqdist"]
+    check((v["queries"], v["refs"]) == (1048576, 32768),
+          f"stretch: K4 at {v['queries']} x {v['refs']}, expected 1048576 x 32768")
+    phase("stretch_4cam_1mm step inputs", t)
+    t = time.perf_counter()
+    accum = check_accumulator(torch, runs["stretch_4cam_1mm"])
+    phase("accumulator", t)
+    for key in drop:
+        runs["stretch_4cam_1mm"].pop(key, None)
 
     # 9. every preset against the JAX golden
     t = time.perf_counter()
@@ -1128,7 +1242,7 @@ def main() -> int:
     out_rows = []
     for r in rows:
         path = "sor_entry" if r["name"] == "sor_knn" else "2cam"
-        steps = {p: v[r["name"]] for p, v in step_rows.items() if r["name"] in v}
+        steps = {p: v[r["name"]] for p, v in step_rows.items() if v.get(r["name"])}
         out_rows.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[path][r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -1140,7 +1254,7 @@ def main() -> int:
     log(json.dumps({"presets": {name: {k: r[k] for k in ("steady_ms", "fps", "peak_mib",
                                                           "plain_ms")}
                                 for name, r in runs.items()},
-                    "replay": replay}))
+                    "replay": replay, "accumulator": accum}))
     log(json.dumps({"golden": gold}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))

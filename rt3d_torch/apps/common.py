@@ -4,9 +4,8 @@
 The flags are the JAX apps', plus ``--device`` (default ``cuda``). Flags
 whose paths the port does not have yet refuse with `NotImplementedError`
 naming their ROADMAP item, rather than being ignored: ``--quantize`` (item
-14), ``--live`` and ``--save-frames`` (item 15), ``--accumulate`` and
-``--accum-raw`` (item 12); ``--tracker botsort|deepsort`` reaches the
-pipeline's own item-13 error. A CUDA device without a card is refused too.
+14), ``--live`` and ``--save-frames`` (item 15). A CUDA device without a
+card is refused too.
 """
 
 from __future__ import annotations
@@ -46,14 +45,16 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--live", default=None, metavar="SPOOL_DIR",
                    help="publish latest outputs for a viewer (not ported: ROADMAP item 15)")
     p.add_argument("--accumulate", action="store_true",
-                   help="persistent workspace accumulation (not ported: ROADMAP item 12)")
+                   help="persistent workspace accumulation: publish the voxels whose "
+                        "decayed weight clears accum_min_weight")
     p.add_argument("--accum-raw", action="store_true",
-                   help="with --accumulate: raw-ray accumulator feed (not ported: "
-                        "ROADMAP item 12)")
+                   help="with --accumulate: feed the accumulator the snapped raw rays, "
+                        "skipping the per-camera dedupe; voxel weights count rays")
     p.add_argument("--tracker", default=None,
                    choices=["bytetrack", "botsort", "deepsort"],
-                   help="ID association: bytetrack (reference default); botsort and "
-                        "deepsort are ROADMAP item 13")
+                   help="ID association: bytetrack (reference default), botsort "
+                        "(ReID-fused IoU + GMC), deepsort (appearance-primary under a "
+                        "Mahalanobis gate)")
     p.add_argument("--quantize", action="store_true",
                    help="int8 W8A8 conv stack (not ported: ROADMAP item 14)")
 
@@ -63,8 +64,6 @@ _UNPORTED = (
     ("quantize", "--quantize (int8 W8A8) is ROADMAP item 14"),
     ("live", "--live (the live spool and its viewer) is ROADMAP item 15"),
     ("save_frames", "--save-frames (annotated frames, viz.draw and cv2) is ROADMAP item 15"),
-    ("accumulate", "--accumulate (workspace accumulation) is ROADMAP item 12"),
-    ("accum_raw", "--accum-raw (the raw accumulator feed) is ROADMAP item 12"),
 )
 
 
@@ -96,6 +95,11 @@ def load_config(args, num_cameras: Optional[int] = None) -> Config:
                 # botsort's yaml enables ReID+GMC; deepsort implies ReID
                 with_reid=t in ("botsort", "deepsort") or cfg.tracker.with_reid,
                 gmc=(t == "botsort") or cfg.tracker.gmc))
+    if getattr(args, "accumulate", False):
+        cfg = dataclasses.replace(
+            cfg, pipeline=dataclasses.replace(
+                cfg.pipeline, workspace_accumulate=True,
+                accum_skip_prededupe=getattr(args, "accum_raw", False)))
     if num_cameras is not None and num_cameras != cfg.rig.num_cameras:
         cams = tuple(cfg.rig.cameras[i % cfg.rig.num_cameras]
                      for i in range(num_cameras))

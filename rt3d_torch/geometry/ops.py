@@ -1,10 +1,12 @@
 """Padded-buffer point-cloud ops: backprojection, crop, voxel dedupe.
 
-PyTorch port of the parts of `rt3d/geometry/ops.py` on the main path. The
-voxel semantics are the JAX package's: ``round(p / voxel)`` with round-half-
-to-even, one int32 packed key per voxel, ascending key order in the output,
-the lexicographically smallest keys kept under capacity pressure, and every
-dropped voxel counted as overflow.
+PyTorch port of `rt3d/geometry/ops.py`. The voxel semantics are the JAX
+package's: ``round(p / voxel)`` with round-half-to-even, ascending
+(qx, qy, qz) order in the output, the lexicographically smallest voxels
+kept under capacity pressure, and every dropped voxel counted as overflow.
+A voxel is one int32 packed key when the grid within `bound_m` fits it
+(5 mm), else a two-word key (`_quantize_packed2`, 1 mm), sorted as one int64
+`pair_key`, else its three indices, sorted lexicographically.
 
 Two kernels carry the windowed pre-dedupe of image-grid clouds:
 `window_dedupe` (K1, workspace path) and `window_prev_or` (K2, object-mask
@@ -29,6 +31,7 @@ import torch
 from rt3d_torch import kernels
 
 INT_SENTINEL = 2**31 - 1
+PAIR_SENTINEL = (INT_SENTINEL << 32) | INT_SENTINEL  # `pair_key` of two sentinels
 DEFAULT_DEDUPE_BOUND_M = 2.56
 
 
@@ -151,10 +154,50 @@ def decode_packed(key: torch.Tensor, n: int, half: int,
     return q.float() * voxel_size
 
 
-def _run_starts(sorted_keys: torch.Tensor) -> torch.Tensor:
-    """True where a run of equal keys starts (the first row always)."""
-    start = torch.ones_like(sorted_keys, dtype=torch.bool)
-    start[..., 1:] = sorted_keys[..., 1:] != sorted_keys[..., :-1]
+def packed2_fits(voxel_size: float, bound_m: float) -> bool:
+    """The two-word key's hi word packs (qx, qy): it needs n^2 < 2^31 - 1
+    (out to about 23 m bounds at 1 mm)."""
+    return packed_cells(voxel_size, bound_m) ** 2 < 2**31 - 1
+
+
+def _quantize_packed2(points: torch.Tensor, valid: torch.Tensor,
+                      voxel_size: float, bound_m: float):
+    """Two int32 words per voxel, ``hi = (qx + half) * n + (qy + half)`` and
+    ``lo = qz + half``, whose lexicographic order is that of (qx, qy, qz);
+    out-of-range or invalid rows get the sentinel in both words. Returns
+    (hi, lo, cells per axis, half)."""
+    n = packed_cells(voxel_size, bound_m)
+    half = (n - 1) // 2
+    p = points.float()
+    q = torch.round(p / scalar_like(voxel_size, p)).to(torch.int32)
+    in_range = ((q >= -half) & (q <= half)).all(-1) & valid
+    qo = q + half
+    sent = torch.full_like(qo[..., 0], INT_SENTINEL)
+    hi = torch.where(in_range, qo[..., 0] * n + qo[..., 1], sent)
+    lo = torch.where(in_range, qo[..., 2], sent)
+    return hi, lo, n, half
+
+
+def _decode_packed2(hi: torch.Tensor, lo: torch.Tensor, n: int, half: int,
+                    voxel_size: float) -> torch.Tensor:
+    q = torch.stack([hi // n, hi % n, lo], dim=-1) - half
+    return q.float() * voxel_size
+
+
+def pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 ``(hi << 32) | lo`` of two-word keys: both words are >= 0 or
+    the sentinel, so one sort of it is the lexicographic (hi, lo) sort, and
+    the sentinel pair sorts after every real pair."""
+    return (hi.long() << 32) | lo.long()
+
+
+def _run_starts(*sorted_keys: torch.Tensor) -> torch.Tensor:
+    """True where a run of equal rows of the lexicographically sorted key
+    columns starts (the first row always)."""
+    start = torch.zeros_like(sorted_keys[0], dtype=torch.bool)
+    for k in sorted_keys:
+        start[..., 1:] |= k[..., 1:] != k[..., :-1]
+    start[..., 0] = True
     return start
 
 
@@ -214,6 +257,22 @@ def segmented_or_scan(word: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
         s = s | sp
         k *= 2
     return w
+
+
+def segmented_sum_scan(val: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented sum-scan in `segmented_or_scan`'s contiguous-shift
+    form: the same pass order as the JAX package's, so equal inputs in equal
+    order give equal bits."""
+    n = val.shape[0]
+    v, s = val, start
+    k = 1
+    while k < n:
+        vp = torch.cat([torch.zeros(k, dtype=v.dtype, device=v.device), v[:-k]])
+        sp = torch.cat([torch.zeros(k, dtype=torch.bool, device=s.device), s[:-k]])
+        v = torch.where(s, v, vp + v)
+        s = s | sp
+        k *= 2
+    return v
 
 
 def _bit_histogram(word: torch.Tensor, d: int) -> torch.Tensor:
@@ -329,12 +388,11 @@ def voxel_downsample_grid(points: torch.Tensor, valid: torch.Tensor,
     """Voxel downsample of an (H, W) grid cloud: K1 pre-dedupe, one key sort,
     truncation to `capacity`. Output rows are the sorted keys' run heads
     (holes where the window missed a duplicate); overflow counts the unique
-    voxels beyond capacity."""
+    voxels beyond capacity. Beyond the packed key, `voxel_downsample`."""
     h, w = valid.shape
     if not packed_fits(voxel_size, bound_m):
-        raise NotImplementedError(
-            "voxel grids beyond the packed int32 key (1 mm voxels) are "
-            "ROADMAP item 12")
+        return voxel_downsample(points.reshape(-1, 3), valid.reshape(-1),
+                                voxel_size, capacity, bound_m=bound_m)
     key, ncells, half = quantize_packed(points.reshape(-1, 3),
                                         valid.reshape(-1), voxel_size, bound_m)
     key2 = window_dedupe(key.reshape(h, w), window_dy, window_dx,
@@ -362,35 +420,38 @@ def voxel_downsample_masks(points: torch.Tensor, valid: torch.Tensor,
     """Voxel-downsample D masked subsets of one dense cloud at once:
     ``points (N, 3)``, ``valid (N,)``, ``masks (D, N)``. Returns a batched
     PointBuffer (D, capacity) and per-detection overflow (D,), exactly
-    attributed. Packed path only (D <= 31, packed grid fits int32)."""
+    attributed. Up to 31 detections the mask bits ride one int32 word per
+    point: the packed key with K2's window pass on an image grid, else the
+    two-word key (1 mm voxels; no window pass, a voxel's footprint there is
+    under a pixel); beyond either, the lexicographic path."""
     n = points.shape[0]
     d = masks.shape[0]
-    if not (d <= 31 and packed_fits(voxel_size, bound_m)):
-        raise NotImplementedError(
-            "mask downsampling with more than 31 detections or beyond the "
-            "packed int32 key is ROADMAP item 12")
-    default_s1 = max(2 * d * capacity, min(n // 4, 131072))
-    s1 = stage1_capacity or default_s1
-    return _voxel_masks_packed(points, valid, masks, voxel_size, capacity,
-                               bound_m, s1, union_capacity or min(d * capacity, s1),
-                               grid_hw, plain=plain)
+    s1 = stage1_capacity or max(2 * d * capacity, min(n // 4, 131072))
+    s2 = union_capacity or min(d * capacity, s1)
+    if d <= 31 and packed_fits(voxel_size, bound_m):
+        return _voxel_masks_packed(points, valid, masks, voxel_size, capacity,
+                                   bound_m, s1, s2, grid_hw, plain=plain)
+    if d <= 31 and packed2_fits(voxel_size, bound_m):
+        return _voxel_masks_packed2(points, valid, masks, voxel_size, capacity,
+                                    bound_m, s1, s2)
+    return _voxel_masks_lex(points, valid, masks, voxel_size, capacity)
+
+
+def _mask_words(masks: torch.Tensor) -> torch.Tensor:
+    """(N,) int32: bit i set where detection i's mask (D <= 31, (D, N)) is."""
+    shifts = torch.arange(masks.shape[0], dtype=torch.int32, device=masks.device)
+    return (masks.to(torch.int32) << shifts[:, None]).sum(0, dtype=torch.int32)
 
 
 def _voxel_masks_packed(points, valid, masks, voxel_size, capacity, bound_m,
                         stage1_capacity, union_capacity, grid_hw=None,
                         window_dy=4, window_dx=6, plain=False):
     """Bit-pack the D masks into one int32 word per pixel, K2 window
-    pre-dedupe (grid clouds), block-compact the emitting pixels, sort the
-    small buffer, segmented OR-scan, per-detection select."""
-    n = points.shape[0]
-    d = masks.shape[0]
-    dev = points.device
-    sent = INT_SENTINEL
+    pre-dedupe (grid clouds), then `_masks_from_keys`."""
     key, ncells, half = quantize_packed(points, valid, voxel_size, bound_m)
-    shifts = torch.arange(d, dtype=torch.int32, device=dev)
-    word = (masks.to(torch.int32) << shifts[:, None]).sum(0, dtype=torch.int32)
-    sel = (word != 0) & (key != sent)
-    key = torch.where(sel, key, sent)
+    word = _mask_words(masks)
+    sel = (word != 0) & (key != INT_SENTINEL)
+    key = torch.where(sel, key, INT_SENTINEL)
     word = torch.where(sel, word, 0)
     if grid_hw is not None:
         h, w = grid_hw
@@ -398,8 +459,38 @@ def _voxel_masks_packed(points, valid, masks, voxel_size, capacity, bound_m,
                               window_dy, window_dx, plain=plain)
         word = (word.reshape(h, w) & ~prev).reshape(-1)
         sel = word != 0
-        key = torch.where(sel, key, sent)
+        key = torch.where(sel, key, INT_SENTINEL)
+    return _masks_from_keys(
+        key, word, sel, INT_SENTINEL, masks.shape[0], capacity, stage1_capacity,
+        union_capacity, lambda k: decode_packed(k, ncells, half, voxel_size),
+        truncate=grid_hw is not None)
 
+
+def _voxel_masks_packed2(points, valid, masks, voxel_size, capacity, bound_m,
+                         stage1_capacity, union_capacity):
+    """`_voxel_masks_packed` on the two-word key, as one int64 `pair_key`,
+    without the window pass."""
+    hi, lo, ncells, half = _quantize_packed2(points, valid, voxel_size, bound_m)
+    word = _mask_words(masks)
+    sel = (word != 0) & (hi != INT_SENTINEL)
+    key = torch.where(sel, pair_key(hi, lo), PAIR_SENTINEL)
+    word = torch.where(sel, word, 0)
+    return _masks_from_keys(
+        key, word, sel, PAIR_SENTINEL, masks.shape[0], capacity, stage1_capacity,
+        union_capacity,
+        lambda k: _decode_packed2(k >> 32, k & 0xFFFFFFFF, ncells, half, voxel_size),
+        truncate=False)
+
+
+def _masks_from_keys(key, word, sel, sent, d, capacity, stage1_capacity,
+                     union_capacity, decode, truncate):
+    """The packed mask paths after the keys: block-compact the emitting
+    pixels, sort the small buffer, segmented OR-scan, shrink to the union
+    (a truncation when the window pass left only emitting pixels live),
+    per-detection select. `sent` is the key's sentinel, `decode` maps keys
+    to voxel centres."""
+    n = key.shape[0]
+    dev = key.device
     blk = 128
     pad = (-n) % blk
     if pad:
@@ -426,9 +517,7 @@ def _voxel_masks_packed(points, valid, masks, voxel_size, capacity, bound_m,
 
     s2 = min(union_capacity, stage1_capacity)
     any_emit = emit_word != 0
-    if grid_hw is not None:
-        # the window pass left only emitting pixels live, so they sort to
-        # the front: the shrink to `s2` rows is a truncation
+    if truncate:
         k2 = skey[:s2]
         w2 = emit_word[:s2]
         drop2 = any_emit.sum(dtype=torch.int32) - any_emit[:s2].sum(dtype=torch.int32)
@@ -445,6 +534,7 @@ def _voxel_masks_packed(points, valid, masks, voxel_size, capacity, bound_m,
     k2 = _pad_to(k2, s2, sent)
     w2 = _pad_to(w2, s2, 0)
 
+    shifts = torch.arange(d, dtype=torch.int32, device=dev)
     bits = ((w2[None, :] >> shifts[:, None]) & 1) == 1
     keym = torch.where(bits, k2[None, :].expand(d, s2), sent)
     skeys_d = torch.sort(keym, dim=1).values
@@ -455,8 +545,95 @@ def _voxel_masks_packed(points, valid, masks, voxel_size, capacity, bound_m,
     if kd.shape[1] < capacity:
         kd = torch.cat([kd, torch.full((d, capacity - kd.shape[1]), sent,
                                        dtype=kd.dtype, device=dev)], 1)
-    pts = torch.where(valid_d[..., None],
-                      decode_packed(kd, ncells, half, voxel_size), 0.0)
+    pts = torch.where(valid_d[..., None], decode(kd), 0.0)
     drop_d = _attributed_drops(d, word, w1, emit_word, w2, (drop_a + drop2) > 0)
     overflow = torch.clamp_min(counts - capacity, 0) + drop_d
     return PointBuffer(points=pts, valid=valid_d), overflow
+
+
+def _voxel_masks_lex(points, valid, masks, voxel_size, capacity):
+    """Any number of detections and any voxel grid: a lexicographic sort of
+    the (qx, qy, qz) indices (input order within a voxel), each mask's first
+    pixel of each voxel run by a cumulative count, one compaction per
+    detection."""
+    qx, qy, qz = _quantize(points, valid, voxel_size)
+    order = _lex_order(qx, qy, qz)
+    sx, sy, sz = qx[order], qy[order], qz[order]
+    starts = _run_starts(sx, sy, sz)
+    ms = masks[:, order]
+    m_i = ms.to(torch.int32)
+    inclusive = torch.cumsum(m_i, 1, dtype=torch.int32)
+    base = torch.cummax(torch.where(starts[None, :], inclusive - m_i, -1), 1).values
+    emit = ms & ((inclusive - base) == 1) & (sx != INT_SENTINEL)[None, :]
+    snapped = torch.stack([sx, sy, sz], dim=-1).float() * voxel_size
+    bufs, ovfs = zip(*(compact_points(snapped, e, capacity) for e in emit))
+    return (PointBuffer(points=torch.stack([b.points for b in bufs]),
+                        valid=torch.stack([b.valid for b in bufs])), torch.stack(ovfs))
+
+
+# ---------------------------------------------------------------------------
+# Voxel downsampling of any cloud
+# ---------------------------------------------------------------------------
+
+
+def _quantize(points: torch.Tensor, valid: torch.Tensor, voxel_size: float):
+    """int32 voxel indices (qx, qy, qz), round half to even; invalid rows get
+    the sentinel so they sort last."""
+    p = points.float()
+    q = torch.round(p / scalar_like(voxel_size, p)).to(torch.int32)
+    sent = torch.full_like(q[..., 0], INT_SENTINEL)
+    return tuple(torch.where(valid, q[..., i], sent) for i in range(3))
+
+
+def _lex_order(*keys: torch.Tensor) -> torch.Tensor:
+    """The stable permutation that sorts rows lexicographically by `keys`,
+    the first most significant."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in reversed(keys):
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def _emitted_keys(skey, emit, capacity, sent, decode):
+    """The run heads `emit` of sorted keys `skey` as a buffer of `capacity`
+    rows: in place when the capacity covers the input (valid rows then not
+    contiguous), else compacted by a masked re-sort, keeping the smallest
+    keys. Returns (buffer, overflow)."""
+    if capacity >= skey.shape[0]:
+        skey = _pad_to(skey, capacity, sent)
+        emit = _pad_to(emit, capacity, False)
+        pts = torch.where(emit[:, None], decode(skey), 0.0)
+        return (PointBuffer(points=pts, valid=emit),
+                torch.zeros((), dtype=torch.int32, device=skey.device))
+    kc = torch.sort(torch.where(emit, skey, sent)).values[:capacity]
+    total = emit.sum(dtype=torch.int32)
+    valid = torch.arange(capacity, device=skey.device) < total
+    pts = torch.where(valid[:, None], decode(kc), 0.0)
+    return PointBuffer(points=pts, valid=valid), total - valid.sum(dtype=torch.int32)
+
+
+def voxel_downsample(points: torch.Tensor, valid: torch.Tensor, voxel_size: float,
+                     capacity: int, bound_m: float = DEFAULT_DEDUPE_BOUND_M
+                     ) -> Tuple[PointBuffer, torch.Tensor]:
+    """Exact voxel downsample of one padded (N, 3) cloud: the unique
+    ``round(p / voxel) * voxel`` in ascending (qx, qy, qz) order, the smallest
+    kept under capacity, overflow counted. The packed key when it fits, else
+    the two-word key, else a lexicographic sort of the indices."""
+    if packed_fits(voxel_size, bound_m):
+        key, ncells, half = quantize_packed(points, valid, voxel_size, bound_m)
+        skey = torch.sort(key).values
+        return _emitted_keys(skey, _run_starts(skey) & (skey != INT_SENTINEL),
+                             capacity, INT_SENTINEL,
+                             lambda k: decode_packed(k, ncells, half, voxel_size))
+    if packed2_fits(voxel_size, bound_m):
+        hi, lo, ncells, half = _quantize_packed2(points, valid, voxel_size, bound_m)
+        skey = torch.sort(pair_key(hi, lo)).values
+        return _emitted_keys(
+            skey, _run_starts(skey) & (skey != PAIR_SENTINEL), capacity, PAIR_SENTINEL,
+            lambda k: _decode_packed2(k >> 32, k & 0xFFFFFFFF, ncells, half, voxel_size))
+    qx, qy, qz = _quantize(points, valid, voxel_size)
+    order = _lex_order(qx, qy, qz)
+    sx, sy, sz = qx[order], qy[order], qz[order]
+    emit = _run_starts(sx, sy, sz) & (sx != INT_SENTINEL)
+    snapped = torch.stack([sx, sy, sz], dim=-1).float() * voxel_size
+    return compact_points(snapped, emit, capacity)

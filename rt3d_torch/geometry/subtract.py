@@ -20,6 +20,7 @@ from rt3d_torch.geometry.ops import PointBuffer, scalar_like
 
 BIG = 3.4e38
 _REF_CHUNK = 1024
+_QUERY_CHUNK = 65536
 _BOX_CHUNK = 256   # references under one box of min_d2.cu's first kernel
 _BOX_FLOATS = 72   # floats of boxes a chunk: its own and its 8 tiles', as float4
 
@@ -30,19 +31,25 @@ def min_sqdist_plain(queries: torch.Tensor, refs: torch.Tensor,
     """Plain version of K4: (N,) min over valid refs of
     ((dx dx + dy dy) + dz dz), 3.4e38 when no ref is valid and on invalid
     queries. Exact on every valid query, which meets the kernel's contract
-    for any threshold. Refs are processed in chunks to bound the (N, chunk)
-    temporaries."""
+    for any threshold. Queries and refs are processed in chunks to bound the
+    (query chunk, ref chunk) temporaries. On the CPU only the valid refs
+    are visited; on the card invalid refs are set to infinity instead,
+    which needs no host read (the minimum is the same either way)."""
     q = queries.float()
-    inf = torch.full_like(refs, float("inf"), dtype=torch.float32)
-    r = torch.where(ref_valid[:, None], refs.float(), inf)
+    if refs.device.type == "cpu":
+        r = refs.float()[ref_valid]
+    else:
+        r = torch.where(ref_valid[:, None], refs.float(), float("inf"))
     acc = torch.full((q.shape[0],), BIG, dtype=torch.float32, device=q.device)
-    for c0 in range(0, r.shape[0], _REF_CHUNK):
-        rc = r[c0:c0 + _REF_CHUNK]
-        dx = q[:, 0:1] - rc[:, 0]
-        dy = q[:, 1:2] - rc[:, 1]
-        dz = q[:, 2:3] - rc[:, 2]
-        d2 = (dx * dx + dy * dy) + dz * dz
-        acc = torch.minimum(acc, d2.amin(1))
+    for q0 in range(0, q.shape[0], _QUERY_CHUNK):
+        qc = q[q0:q0 + _QUERY_CHUNK]
+        for c0 in range(0, r.shape[0], _REF_CHUNK):
+            rc = r[c0:c0 + _REF_CHUNK]
+            dx = qc[:, 0:1] - rc[:, 0]
+            dy = qc[:, 1:2] - rc[:, 1]
+            dz = qc[:, 2:3] - rc[:, 2]
+            d2 = (dx * dx + dy * dy) + dz * dz
+            acc[q0:q0 + _QUERY_CHUNK] = torch.minimum(acc[q0:q0 + _QUERY_CHUNK], d2.amin(1))
     if query_valid is not None:
         acc = torch.where(query_valid, acc, torch.full_like(acc, BIG))
     return acc

@@ -19,7 +19,9 @@ with `record`. Here the port's outputs go through the same `record`, and
   with the 6 cm threshold: a point that only one run keeps must lie within
   `TIE_M2` of the threshold's square (float64 squared distance) from the
   other run's object points, and beyond the threshold, up to the same tie,
-  from its own run's object points (`ws_ties`). `measure` also classes the
+  from its own run's object points (`ws_ties`). With accumulation
+  (`accumulate` in the record) the published workspace holds voxels kept
+  in earlier frames, so the tie may lie in any frame so far. `measure` also classes the
   rest: a point within the threshold of the other run's objects only, which
   differing object points explain (`ws_by_objects`), and any other
   (`ws_unexplained`, among them a point its own run should have
@@ -60,14 +62,16 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def record(outs, subtraction_threshold: float) -> dict:
+def record(outs, subtraction_threshold: float, accumulate: bool = False) -> dict:
     """The golden's arrays for a list of per-frame step outputs (the port's
     or the JAX package's `FrameOutputs`): per frame, the detections and
     track IDs of every camera, each fused slot's presence, class, track ID
     and valid points (concatenated in slot order, with per-slot counts),
-    the kept workspace points and the overflow count."""
+    the kept workspace points (with `accumulate`, the accumulator's
+    published voxels) and the overflow count."""
     rec = {"frames": np.int32(len(outs)),
-           "subtraction_threshold": np.float64(subtraction_threshold)}
+           "subtraction_threshold": np.float64(subtraction_threshold),
+           "accumulate": np.bool_(accumulate)}
     for i, o in enumerate(outs):
         d, objs = o.detections, o.objects
         present = _np(objs.present).astype(bool)
@@ -94,10 +98,36 @@ def golden_path(preset: str) -> str:
     return os.path.join(GOLDEN_DIR, f"{preset}.npz")
 
 
+def encode_lattice(rec: dict, voxel_size: float) -> dict:
+    """`rec` with each frame's object and workspace points, when every row is
+    a voxel centre ``f32(q) * f32(voxel_size)`` of integer indices q, stored
+    as those indices' row differences (``*_lattice``, int32; the workspace
+    rows sorted first, as it is compared as a set), which compress to a
+    small fraction of the floats. `load_golden` restores the floats bit for
+    bit."""
+    v = np.float32(voxel_size)
+    out = dict(rec, voxel_size=np.float64(voxel_size))
+    for key in [k for k in rec if k.endswith(("_obj_points", "_ws_points"))]:
+        pts = rec[key]
+        q = np.rint(pts.astype(np.float64) / float(v)).astype(np.int32)
+        if not np.array_equal(q.astype(np.float32) * v, pts):
+            continue
+        if key.endswith("_ws_points"):
+            q = q[np.lexsort(q.T[::-1])]
+        out[key[:-len("points")] + "lattice"] = np.diff(q, axis=0, prepend=np.zeros((1, 3), np.int32))
+        del out[key]
+    return out
+
+
 def load_golden(preset: str) -> dict:
-    """The recorded arrays of `preset` (a name of `PRESETS`)."""
+    """The recorded arrays of `preset` (a name of `PRESETS`), lattice-coded
+    points (`encode_lattice`) restored to floats."""
     with np.load(golden_path(preset)) as z:
-        return {k: z[k] for k in z.files}
+        g = {k: z[k] for k in z.files}
+    for key in [k for k in g if k.endswith("_lattice")]:
+        q = np.cumsum(g.pop(key), axis=0, dtype=np.int32)
+        g[key[:-len("lattice")] + "points"] = q.astype(np.float32) * np.float32(g["voxel_size"])
+    return g
 
 
 def _only(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -135,6 +165,8 @@ def measure(got: dict, ref: dict) -> dict:
     """Every difference of record `got` from record `ref` over their
     common frames, as plain numbers (see the module docstring)."""
     thr2 = float(ref["subtraction_threshold"]) ** 2
+    accumulate = bool(ref.get("accumulate", False))
+    objs = {"ws_only_port": ([], []), "ws_only_golden": ([], [])}  # (own, other) per frame
     m = dict(frames=0, det_valid=0, det_class=0, track_id=0, box_max_px=0.0,
              score_max=0.0, slots=0, voxels_differing=0, voxel_slots_over=0,
              voxel_fraction_max=0.0, ws_kept=0, ws_only_port=0, ws_only_golden=0,
@@ -174,10 +206,21 @@ def measure(got: dict, ref: dict) -> dict:
                  "ws_only_golden")):
             only = _only(mine, theirs)
             m[key] += len(only)
-            d2 = _min_d2(only, other)
-            kept_by_own = _min_d2(only, own) > thr2 - TIE_M2
-            tie = kept_by_own & (np.abs(d2 - thr2) < TIE_M2)
-            by_objects = kept_by_own & ~tie & (d2 <= thr2)
+            # with accumulation a published voxel may come from the
+            # decision of any frame so far: a tie or differing objects
+            # in one of them explains it
+            own_hist, other_hist = objs[key]
+            own_hist.append(own)
+            other_hist.append(other)
+            frames = range(len(own_hist)) if accumulate else [len(own_hist) - 1]
+            tie = np.zeros(len(only), bool)
+            by_objects = np.zeros(len(only), bool)
+            for j in frames:
+                d2 = _min_d2(only, other_hist[j])
+                kept_by_own = _min_d2(only, own_hist[j]) > thr2 - TIE_M2
+                tie |= kept_by_own & (np.abs(d2 - thr2) < TIE_M2)
+                by_objects |= kept_by_own & (d2 <= thr2)
+            by_objects &= ~tie
             m["ws_ties"] += int(tie.sum())
             m["ws_by_objects"] += int(by_objects.sum())
             m["ws_unexplained"] += int((~tie & ~by_objects).sum())
@@ -206,6 +249,7 @@ def compare_to_golden(outs, golden: dict) -> dict:
     """Hold the port's per-frame outputs `outs` against `golden` (from
     `load_golden`), frame by frame from frame 0; returns the measured
     differences and raises beyond the bands."""
-    m = measure(record(outs, float(golden["subtraction_threshold"])), golden)
+    m = measure(record(outs, float(golden["subtraction_threshold"]),
+                       bool(golden.get("accumulate", False))), golden)
     check_bands(m)
     return m

@@ -1,12 +1,13 @@
 """Where the port's step spends its time on the card.
 
-    python3 -m rt3d_torch.stage_times [--preset {2cam,2cam_cpu,1cam}] [--frames N]
+    python3 -m rt3d_torch.stage_times [--preset NAME] [--frames N]
 
 Builds a preset as `chip_smoke.py` does (`rt3d_torch.pipeline.presets`:
 `2cam`, the default config, two HD720 synthetic cameras, yolo11x-seg with
 the committed weights; `2cam_cpu`, the CPU-variant preset with mask erosion
-and workspace SOR; `1cam`, one camera with yolo11l-seg), warms up on two
-frames, then
+and workspace SOR; `1cam`, one camera with yolo11l-seg; the 4-camera 1 mm
+accumulating `stretch_4cam_1mm`; `2cam_botsort` and `2cam_deepsort`),
+warms up on two frames, then
 
 * times every stage of `Pipeline.step` on its own, with a synchronize
   before and after it: device ms from CUDA events and host wall ms;
@@ -38,8 +39,8 @@ def _staged_step(pipe, state, rgb, depth, calib, record):
     """`Pipeline.step` split at its stages; `record(name, fn)` runs and
     times each one."""
     images = record("preprocess", lambda: pipe.preprocess(rgb))
-    det, protos = record("detect", lambda: pipe.detect(images))
-    state, ids = record("track", lambda: pipe.track(state, det))
+    det, protos, emb = record("detect", lambda: pipe.detect(images))
+    state, ids = record("track", lambda: pipe.track(state, det, emb, images))
     masks = record("masks", lambda: pipe.masks(protos, det))
     per_cam, _ = record("object_clouds",
                         lambda: pipe.object_clouds(depth, masks, det, ids, calib))
@@ -47,7 +48,8 @@ def _staged_step(pipe, state, rgb, depth, calib, record):
     _, flat, _ = record("fuse", lambda: pipe.fuse(per_cam))
     ws_all = PointBuffer(ws.points.reshape(-1, 3), ws.valid.reshape(-1))
     ws_all = record("workspace_sor", lambda: pipe.workspace_sor(ws_all))
-    record("subtract", lambda: pipe.subtract(ws_all, flat))
+    ws_out = record("subtract", lambda: pipe.subtract(ws_all, flat))
+    state, _, _ = record("accumulate", lambda: pipe.accumulate(state, ws_out))
     return state
 
 

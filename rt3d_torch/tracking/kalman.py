@@ -2,8 +2,9 @@
 
 PyTorch port of `rt3d/tracking/kalman.py` (ByteTrack's `KalmanFilterXYAH`):
 state [x, y, a, h, vx, vy, va, vh], observation [x, y, a, h], noise scaled
-by box height. The 4x4 solves use the same unrolled Cholesky as the JAX
-package, so both take the same arithmetic path.
+by box height. The 4x4 solves of the update and of DeepSORT's gating
+distance use the same unrolled Cholesky as the JAX package, so both take
+the same arithmetic path.
 """
 
 from __future__ import annotations
@@ -101,6 +102,22 @@ def _project(mean: torch.Tensor, cov: torch.Tensor):
     std = torch.stack([STD_POS * h, STD_POS * h, torch.full_like(h, 1e-1),
                        STD_POS * h], dim=-1)
     return mean[..., :4], cov[..., :4, :4] + _diag_cov(std)
+
+
+def gating_distance(mean: torch.Tensor, cov: torch.Tensor, measurements: torch.Tensor,
+                     only_position: bool = False) -> torch.Tensor:
+    """(S, D) squared Mahalanobis distance of each xyah measurement (D, 4)
+    to each track's predicted measurement distribution (DeepSORT's gate);
+    with `only_position`, over (x, y) only."""
+    proj_mean, s = _project(mean, cov)
+    if only_position:
+        proj_mean, s = proj_mean[..., :2], s[..., :2, :2]
+        measurements = measurements[..., :2]
+    d = measurements[None, :, :] - proj_mean[:, None, :]
+    l = _chol_unrolled(s)
+    lb = [[e[:, None] if e is not None else None for e in row] for row in l]
+    z = _forward_sub(lb, [d[..., i] for i in range(d.shape[-1])])
+    return sum(zi * zi for zi in z)
 
 
 def kalman_update(mean: torch.Tensor, cov: torch.Tensor,

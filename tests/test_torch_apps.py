@@ -6,7 +6,8 @@ thing:
 - `two_cam` and `one_cam` on a synthetic and on a recorded source, with the
   CSV checks of `tests/test_cli_apps.py`;
 - `save_ply` and the timing CSVs byte for byte against the JAX package's;
-- every flag the port refuses, with its ROADMAP item;
+- every flag the port refuses, with its ROADMAP item, and the
+  accumulation and tracker flags, whose configs equal the JAX apps';
 - `record` against the JAX recorder, byte for byte but for `generator`;
 - `convert_weights` against the JAX converter, array for array, and a
   `.pt` weights path against its `.npz`.
@@ -142,8 +143,6 @@ REFUSED = [
     (["--quantize"], "ROADMAP item 14"),
     (["--live", "spool"], "ROADMAP item 15"),
     (["--save-frames"], "ROADMAP item 15"),
-    (["--accumulate"], "ROADMAP item 12"),
-    (["--accumulate", "--accum-raw"], "ROADMAP item 12"),
 ]
 
 
@@ -156,14 +155,52 @@ def test_unported_flags_are_refused(app, flags, item, tmp_path):
                   "--log-dir", str(tmp_path / "runs"), *flags])
 
 
+def _jax_config(flags, tmp_path, cams):
+    """The JAX apps' config for the same flags and config file."""
+    import argparse
+
+    from rt3d.apps import common as jcommon
+
+    ap = argparse.ArgumentParser()
+    jcommon.add_common_args(ap)
+    return jcommon.load_config(ap.parse_args(["--config", config_json(tmp_path, cams), *flags]))
+
+
+@pytest.mark.parametrize("app", sorted(APPS))
+@pytest.mark.parametrize("flags", [["--accumulate"], ["--accumulate", "--accum-raw"]])
+def test_accumulate_flags_run(app, flags, rts, tmp_path, monkeypatch):
+    """``--accumulate`` and ``--accum-raw`` set the JAX apps' config (the
+    raw feed only with the flag) and the app steps two frames with it."""
+    mod, cams = APPS[app]
+    built = []
+    monkeypatch.setattr("rt3d_torch.pipeline.step.build_pipeline",
+                        lambda cfg, **kw: built.append(cfg) or build_pipeline(cfg, **kw))
+    assert mod.main(["--source", rts, "--frames", "2", "--config", config_json(tmp_path, cams),
+                     "--device", "cpu", "--log-dir", str(tmp_path / "runs"), *flags]) == 0
+    cfg = built[0]
+    assert cfg.pipeline.workspace_accumulate
+    assert cfg.pipeline.accum_skip_prededupe == ("--accum-raw" in flags)
+    assert cfg.pipeline == Config.from_dict(_jax_config(flags, tmp_path, cams).to_dict()).pipeline
+
+
 @pytest.mark.parametrize("tracker", ["botsort", "deepsort"])
-def test_other_trackers_reach_the_pipeline_error(tracker, rts, tmp_path):
+def test_other_trackers_reach_the_pipeline_error(tracker, rts, tmp_path, monkeypatch):
+    """``--tracker botsort|deepsort``, which reached the pipeline's refusal
+    before the tracker slice, now sets the JAX apps' tracker config
+    (botsort with ReID and GMC, deepsort with ReID) and `two_cam` steps two
+    recorded frames with it, leaving no thread behind."""
+    built = []
+    monkeypatch.setattr("rt3d_torch.pipeline.step.build_pipeline",
+                        lambda cfg, **kw: built.append(cfg) or build_pipeline(cfg, **kw))
     before = threading.active_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        two_cam.main(["--source", rts, "--frames", "1", "--config", config_json(tmp_path, 2),
-                      "--device", "cpu", "--tracker", tracker,
-                      "--log-dir", str(tmp_path / "runs")])
+    flags = ["--tracker", tracker]
+    assert two_cam.main(["--source", rts, "--frames", "2", "--config",
+                         config_json(tmp_path, 2), "--device", "cpu",
+                         "--log-dir", str(tmp_path / "runs"), *flags]) == 0
     assert threading.active_count() == before
+    t = built[0].tracker
+    assert (t.tracker_type, t.with_reid, t.gmc) == (tracker, True, tracker == "botsort")
+    assert t == Config.from_dict(_jax_config(flags, tmp_path, 2).to_dict()).tracker
 
 
 def test_apps_default_to_the_card(tmp_path):

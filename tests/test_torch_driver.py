@@ -172,6 +172,58 @@ def test_scan_mode_equals_frame_mode(fused, seq):
         assert torch.equal(s.track_id, f.track_id) and torch.equal(s.mean, f.mean)
 
 
+def test_scan_mode_keeps_the_accumulator_on_a_bad_frame(seq):
+    """With workspace accumulation on and BoT-SORT's GMC (whose previous
+    grey image is state as well), scan mode (two frames a call, the bad
+    frame inside a chunk) gives each good frame the outputs of plain steps
+    over the good frames only, and ends with their accumulator and grey
+    images and trackers; stepping the bad frame too would have changed the
+    accumulator and, through GMC from its grey image, the tracks."""
+    path, cfg = seq
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # a dozen small steps: no pool to wake per op
+    try:
+        _check_scan_keeps_the_accumulator(path, cfg)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _check_scan_keeps_the_accumulator(path, cfg):
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        cfg, pipeline=dataclasses.replace(cfg.pipeline, workspace_accumulate=True),
+        tracker=dataclasses.replace(cfg.tracker, tracker_type="botsort", with_reid=True,
+                                    gmc=True))
+    pipe = build_pipeline(cfg, weights=WEIGHTS, device="cpu")
+    sdrv, sseen = drive(pipe, path, frames_per_dispatch=2)
+    assert [i for i, _ in sseen] == GOOD
+    src = ReplaySource(path)
+    try:
+        calib = pipe.calib()
+        ref = every = pipe.init_state()
+        outs = {}
+        for i in range(FRAMES):
+            pkt = src.get(i)
+            rgb, depth = torch.from_numpy(pkt.rgb), torch.from_numpy(pkt.depth)
+            every, _ = pipe.step(every, rgb, depth, calib)
+            if i in GOOD:
+                ref, outs[i] = pipe.step(ref, rgb, depth, calib)
+    finally:
+        src.close()
+    for i, o in sseen:
+        assert_same(o, outs[i])
+    acc, racc = sdrv.state.accum, ref.accum
+    for f in ("keys_hi", "keys_lo", "weight"):
+        assert torch.equal(getattr(acc, f), getattr(racc, f)), f
+    assert torch.equal(sdrv.state.prev_gray, ref.prev_gray)
+    assert int((acc.keys_hi != 2**31 - 1).sum()) > 1000
+    for t, rt, et in zip(sdrv.state.trackers, ref.trackers, every.trackers):
+        assert torch.equal(t.mean, rt.mean) and torch.equal(t.emb, rt.emb)
+    assert not torch.equal(every.accum.weight, racc.weight)
+    assert not torch.equal(every.trackers[0].mean, ref.trackers[0].mean)
+
+
 def test_profile_mode_equals_fused_mode(fused, seq):
     """Profile mode's stage-split step gives fused mode's outputs, overflow
     included, and fills the reference's stage rows."""

@@ -11,6 +11,8 @@ yolo11l, about 12 s). On the card `chip_smoke.py` holds every preset's
 float32 step against its golden.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -121,3 +123,27 @@ def test_port_on_cpu_meets_1cam_golden():
     assert m["frames"] == 1
     assert m["voxels_differing"] == 0 and m["ws_by_objects"] == 0
     assert m["box_max_px"] <= golden.BOX_ATOL and m["score_max"] <= golden.SCORE_ATOL
+
+
+def test_lattice_coding_round_trips(tmp_path, monkeypatch):
+    """`encode_lattice` stores 2cam's voxel-centre points as 5 mm lattice
+    index differences, under a thirtieth of the floats' compressed size,
+    and `load_golden` gives back every array: the workspace as the same
+    multiset of float32 rows, the rest bit for bit."""
+    g = golden.load_golden("2cam")
+    enc = golden.encode_lattice(g, 0.005)
+    assert sorted(k for k in enc if k.endswith("_lattice")) == [
+        "f0_obj_lattice", "f0_ws_lattice", "f1_obj_lattice", "f1_ws_lattice"]
+    np.savez_compressed(tmp_path / "2cam.npz", **enc)
+    assert (tmp_path / "2cam.npz").stat().st_size * 30 < os.path.getsize(golden.golden_path("2cam"))
+    monkeypatch.setattr(golden, "GOLDEN_DIR", str(tmp_path))
+    back = golden.load_golden("2cam")
+    assert set(back) == set(g) | {"voxel_size"}
+    for k, v in g.items():
+        if k.endswith("_ws_points"):
+            assert len(back[k]) == len(v)
+            assert golden._only(back[k], v).size == 0 and golden._only(v, back[k]).size == 0
+        else:
+            np.testing.assert_array_equal(back[k], v, err_msg=k)
+    off = {**g, "f0_ws_points": g["f0_ws_points"] + np.float32(1e-4)}
+    assert "f0_ws_points" in golden.encode_lattice(off, 0.005)

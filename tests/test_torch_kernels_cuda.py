@@ -255,11 +255,13 @@ def _objects(gen, m, n_valid):
 
 
 @pytest.mark.parametrize("n,n_valid,m,m_valid", [(131072, 90000, 20480, 2000),
+                                                 (1048576, 700000, 32768, 20000),
                                                  (1000, 700, 333, 130), (300, 257, 300, 290)])
 def test_min_sqdist_threshold_contract(gen, n, n_valid, m, m_valid):
     """K4 with the step's threshold and query validity on sorted lattice
     queries with holes and an invalid tail, against compacted object
-    references (the step's shapes, and small ragged ones): the threshold
+    references (the 2cam step's shapes, the stretch step's 1 048 576
+    queries against 32 768 references, and small ragged ones): the threshold
     contract, one launch a call, and every valid query exact without a
     threshold."""
     q, qv = _workspace(gen, n, n_valid)
@@ -482,3 +484,35 @@ def test_profile_op_times_on_card(gen):
     x = torch.rand(1 << 20, device="cuda", generator=gen)
     total, per_op = profile_op_times(lambda: (x * 2).sum(), iters=3)
     assert total > 0 and per_op and all(v >= 0 for v in per_op.values())
+
+
+@pytest.mark.parametrize("capacity", [1 << 20, 4096])
+def test_accumulate_voxels_on_card_equals_cpu(gen, capacity):
+    """Three frames of 1 mm voxels (200 000 rays each, many sharing a
+    voxel) folded into the accumulator on the card and on the CPU, without
+    eviction and with it (4096 voxels): keys and overflow equal, weights
+    within 1e-6 relative; the extracted voxels equal outside that band of
+    the weight threshold."""
+    from rt3d_torch.geometry.voxel_sets import (
+        VoxelAccumulator, accumulate_voxels, extract_accumulated,
+    )
+
+    accs = {d: VoxelAccumulator.empty(capacity, d) for d in ("cuda", "cpu")}
+    for _ in range(3):
+        pts = (torch.randint(-300, 300, (200000, 3), device="cuda", generator=gen).float()
+               * 0.0007).contiguous()
+        valid = torch.rand(200000, device="cuda", generator=gen) >= 0.2
+        ovf = {}
+        for d in accs:
+            accs[d], ovf[d] = accumulate_voxels(accs[d], pts.to(d), valid.to(d), 0.001,
+                                                decay=0.97)
+        assert int(ovf["cuda"]) == int(ovf["cpu"])
+        assert (int(ovf["cuda"]) > 0) == (capacity == 4096)
+    g, c = accs["cuda"], accs["cpu"]
+    assert torch.equal(g.keys_hi.cpu(), c.keys_hi) and torch.equal(g.keys_lo.cpu(), c.keys_lo)
+    torch.testing.assert_close(g.weight.cpu(), c.weight, rtol=1e-6, atol=0)
+    band = (c.weight - 0.5).abs() <= 0.5e-6
+    ge, ce = extract_accumulated(g, 0.001, min_weight=0.5), extract_accumulated(c, 0.001,
+                                                                                min_weight=0.5)
+    assert torch.equal(ge.valid.cpu()[~band], ce.valid[~band])
+    assert torch.equal(ge.points.cpu()[~band], ce.points[~band])

@@ -51,17 +51,18 @@ def small_config(cameras) -> config.Config:
     return config.Config.from_dict(d)
 
 
-def run_both(cfg, weights, src, frames):
+def run_both(cfg, weights, src, frames, states=False):
     """Step the port and the JAX package (float32, op by op) over the same
     `frames` of `src` with carried state. Returns (port pipeline, JAX
-    pipeline, port outputs, JAX outputs) per frame."""
+    pipeline, port outputs, JAX outputs) per frame, and with `states` the
+    (port, JAX) state after each frame too."""
     pipe = build_pipeline(cfg, weights=weights, device="cpu")
     jcfg = jconfig.Config.from_dict(cfg.to_dict())
     jpipe = jbuild_pipeline(jcfg)
     params = {k: jnp.asarray(v, jnp.float32) for k, v in load_params(weights).items()}
     state, calib = pipe.init_state(), pipe.calib()
     jstate, jcalib = jpipe.init_state(), JCalib.from_config(jcfg)
-    got, exp = [], []
+    got, exp, both = [], [], []
     ycore.set_compute_dtype(jnp.float32)
     try:
         for i in range(frames):
@@ -72,9 +73,10 @@ def run_both(cfg, weights, src, frames):
                                       jnp.asarray(pkt.depth), jcalib)
             got.append(out)
             exp.append(jout)
+            both.append((state, jstate))
     finally:
         ycore.set_compute_dtype(jnp.bfloat16)
-    return pipe, jpipe, got, exp
+    return (pipe, jpipe, got, exp) + ((both,) if states else ())
 
 
 def threshold_ties(out, thr):
@@ -182,22 +184,71 @@ def test_bytetrack_ignores_reid_and_gmc_flags(runs, flag):
     assert (N(out.track_ids) > 0).any()
 
 
+def _assert_accumulators_match(acc, jacc, outs, pcfg):
+    """The port's accumulator against the JAX package's after the frames of
+    `outs`, under pipeline config `pcfg`: the same voxels with weights
+    within 1e-6 relative, none within that band of `accum_min_weight` (so
+    the published voxels are the same), except voxels within 1e-8 m^2 of
+    the threshold's square from the object voxels of one of those frames (a
+    tie, which either side may have kept)."""
+    from rt3d_torch.golden import _min_d2
+
+    def rows(a):
+        hi, lo, w = N(a.keys_hi), N(a.keys_lo), N(a.weight)
+        live = hi != 2**31 - 1
+        return {(int(h), int(l)): float(x) for h, l, x in zip(hi[live], lo[live], w[live])}
+
+    thr, min_weight = pcfg.subtraction_threshold, pcfg.accum_min_weight
+    mine, theirs = rows(acc), rows(jacc)
+    keys = sorted(set(mine) | set(theirs))
+    n = 2 * int(np.ceil(pcfg.dedupe_bound_m / pcfg.voxel_size)) + 1
+    q = np.array([[h // n, h % n, lo] for h, lo in keys], np.int64) - (n - 1) // 2
+    pts = q.astype(np.float32) * np.float32(pcfg.voxel_size)
+    tie = np.zeros(len(keys), bool)
+    for o in outs:
+        obj = N(o.objects_flat.points)[N(o.objects_flat.valid)]
+        tie |= np.abs(_min_d2(pts, obj) - thr * thr) < 1e-8
+    for k, t in zip(keys, tie):
+        if t:
+            continue
+        assert k in mine and k in theirs, k
+        np.testing.assert_allclose(mine[k], theirs[k], rtol=1e-6)
+        assert abs(theirs[k] - min_weight) > 1e-6 * min_weight
+    assert len(mine) > 1000 and tie.sum() < 0.05 * len(keys)
+
+
 @pytest.mark.parametrize("change", ["accumulate", "botsort"])
 def test_unported_branches_raise(change):
-    """Branches outside the ported slices raise instead of running
-    something else."""
-    base = small_config(SyntheticSource(num_cameras=2, hw=(H, W)).cameras())
+    """The two branches that raised before the 1 mm and tracker slice now
+    run and give the JAX package's step, two frames: workspace accumulation
+    on this config's 1 cm grid (the dedupe path feeds the accumulator), and
+    BoT-SORT with ReID and GMC. Track IDs, the accumulator's keys and the
+    published workspace exact (weights within 1e-6 relative, no weight in
+    that band of the threshold), outside threshold ties: a voxel whose
+    keep decision was a tie in some frame (`_assert_accumulators_match`)."""
+    src = SyntheticSource(num_cameras=2, num_frames=2, hw=(H, W), num_objects=2)
+    base = small_config(src.cameras())
     p, t = base.pipeline, base.tracker
     cfg = {
         "accumulate": dataclasses.replace(base, pipeline=dataclasses.replace(p, workspace_accumulate=True)),
-        "botsort": dataclasses.replace(base, tracker=dataclasses.replace(t, tracker_type="botsort")),
+        "botsort": dataclasses.replace(base, tracker=dataclasses.replace(
+            t, tracker_type="botsort", with_reid=True, gmc=True)),
     }[change]
-    pipe = build_pipeline(cfg, device="cpu")
-    src = SyntheticSource(num_cameras=2, num_frames=1, hw=(H, W))
-    pkt = src.get(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        pipe.step(pipe.init_state(), torch.from_numpy(pkt.rgb), torch.from_numpy(pkt.depth),
-                  pipe.calib())
+    _, _, got, exp, states = run_both(cfg, WEIGHTS, src, 2, states=True)
+    thr = cfg.pipeline.subtraction_threshold
+    both_seen = []
+    for o, e, (st, jst) in zip(got, exp, states):
+        np.testing.assert_array_equal(N(o.track_ids), N(e.track_ids))
+        np.testing.assert_array_equal(N(o.objects_flat.points), N(e.objects_flat.points))
+        assert int(o.overflow) == int(e.overflow)
+        if change == "accumulate":
+            _assert_accumulators_match(st.accum, jst.accum, got[:len(both_seen) + 1],
+                                       cfg.pipeline)
+            both_seen.append(o)
+        else:
+            tie = threshold_ties(o, thr)
+            np.testing.assert_array_equal(N(o.workspace.valid)[~tie], N(e.workspace.valid)[~tie])
+    assert (N(got[-1].track_ids) > 0).any() and N(got[-1].workspace.valid).sum() > 1000
 
 
 @pytest.mark.parametrize("domain", ["easy", "hard"])
