@@ -63,11 +63,24 @@ Phases, each printing its wall seconds:
      voxels, two folds of that step's subtracted workspace) against the
      same calls on the CPU, then one fold into the step's accumulator
      timed;
-  9. every preset (the six of phases 4-10) in float32 (TF32 off) over the
+  11. the int8 backbone (`2cam_int8`: yolo11x-seg with stages 1-15 int8,
+     preprocess and mask resize in float32): its live calibration on 4
+     frames, timed; 8 HD720 frames with counters checked per step and a
+     plain run compared, as in phases 4-5; for a stage-1 conv, the conv of
+     K = 6912 and a depthwise `pe` conv, the card's int32 sums on the
+     first frame's inputs equal to the CPU's int64 sums of the same int8
+     tensors; detect timed int8 against bf16 on the same frames; and
+     `python -m rt3d_torch.apps.two_cam --quantize` in-process on the
+     first 6 frames of phase 8b's recording (stale x sidecar: it must
+     recalibrate);
+  9. every preset (the seven of phases 4-11) in float32 (TF32 off) over the
      frames of its JAX golden (`tests/golden_torch/`, from
      `tools/make_torch_golden.py`), held against it within the bands of
-     `rt3d_torch/golden.py`; then its usual bf16 step over the same
-     frames, whose differences are printed only.
+     `rt3d_torch/golden.py` (the tracker presets with their embeddings,
+     GMC warps and ByteTrack IDs; 2cam_int8 quantized against the golden's
+     scales, with the card's own float32 calibration held against them);
+     then its usual bf16 step over the same frames, whose differences are
+     printed only.
 
 Fails (non-zero exit, no result line) when no CUDA device is present, when
 the port is missing beside this file, or when any check fails. The last
@@ -677,22 +690,33 @@ def check_accumulator(torch, run):
 
 def check_golden(torch):
     """Each preset in float32 over its golden's frames, held against the
-    JAX golden (`rt3d_torch.golden`, bands in its docstring); then the
-    preset's usual bf16 step over the same frames, whose differences from
-    the golden are measured and printed, not checked. Every preset is
+    JAX golden (`rt3d_torch.golden`, bands in its docstring; the tracker
+    presets with their embeddings, GMC warps and ByteTrack IDs through a
+    `golden.Probe`; 2cam_int8 quantized against the golden's activation
+    scales, and the card's own float32 calibration held against those
+    scales within `golden.CALIB_RTOL`); then the preset's usual bf16 step
+    over the same frames (2cam_int8 calibrated live), whose differences
+    from the golden are measured and printed, not checked. Every preset is
     measured before any band is checked."""
     from rt3d_torch import golden
-    from rt3d_torch.pipeline.presets import PRESETS, synthetic_preset
+    from rt3d_torch.models import quant
+    from rt3d_torch.pipeline.presets import (
+        CALIB_FRAMES, PRESETS, preset_config, preset_weights, synthetic_preset,
+    )
+    from rt3d_torch.pipeline.step import build_pipeline
 
     res = {}
     for name in PRESETS:
         g = golden.load_golden(name)
         n = int(g["frames"])
+        scales = golden.golden_act_scales(g) if PRESETS[name].quantize else None
         res[name] = {}
         for dtype in ("float32", None):  # None: the preset's usual bf16
             gc.collect()
             torch.cuda.empty_cache()
-            pipe, src = synthetic_preset(name, n, dtype=dtype)
+            pipe, src = synthetic_preset(name, n, dtype=dtype,
+                                         act_scales=scales if dtype else None)
+            probe = golden.Probe(pipe) if "f0_bytetrack_ids" in g else None
             state, calib = pipe.init_state(), pipe.calib()
             outs = []
             for i in range(n):
@@ -701,15 +725,166 @@ def check_golden(torch):
                                      torch.from_numpy(pkt.depth).cuda(), calib)
                 outs.append(o)
             rec = golden.record(outs, float(g["subtraction_threshold"]),
-                                pipe.cfg.pipeline.workspace_accumulate)
+                                pipe.cfg.pipeline.workspace_accumulate,
+                                probe.frames if probe else None)
             res[name][dtype or "usual"] = golden.measure(rec, g)
-            del pipe, outs
+            del pipe, outs, probe
+        if scales:
+            pipe = build_pipeline(preset_config(name, src, "float32"), weights=preset_weights(name))
+            own = quant.collect_act_scales(
+                pipe.model, quant.synth_calib_batches(pipe, src, range(CALIB_FRAMES)))
+            check(own.keys() == scales.keys(), f"{name}: calibrated convs differ from the golden's")
+            res[name]["calib_rel_max"] = max(abs(own[p] - scales[p]) / scales[p] for p in scales)
+            del pipe
         log(f"  {name}: {json.dumps(res[name])}")
     for name, r in res.items():
         try:
-            golden.check_bands(r["float32"])
+            golden.check_bands(r["float32"], name)
         except AssertionError as e:
             raise AssertionError(f"{name} float32: {e}") from None
+        if "calib_rel_max" in r:
+            check(r["calib_rel_max"] <= golden.CALIB_RTOL,
+                  f"{name}: float32 calibration {r['calib_rel_max']} from the golden's scales, "
+                  f"beyond {golden.CALIB_RTOL}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the int8 backbone
+# ---------------------------------------------------------------------------
+
+# a stage-1 conv, the conv of K = 3 * 3 * 768 = 6912, a depthwise `pe` conv
+INT8_CONVS = ("1/conv", "7/conv", "10/m/0/attn/pe/conv")
+
+
+def calibrate_int8(torch):
+    """2cam_int8's live calibration on the card: the preset's bf16
+    pipeline, not yet quantized, over frames 0 to CALIB_FRAMES - 1 of its
+    source (preprocess and forward with every conv's input reduced),
+    timed. Returns (scales, seconds, that bf16 pipeline)."""
+    from rt3d_torch.models import quant
+    from rt3d_torch.pipeline.presets import (
+        CALIB_FRAMES, preset_config, preset_source, preset_weights,
+    )
+    from rt3d_torch.pipeline.step import build_pipeline
+
+    src = preset_source("2cam_int8", FRAMES)
+    pipe = build_pipeline(preset_config("2cam_int8", src), weights=preset_weights("2cam_int8"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scales = quant.collect_act_scales(pipe.model, quant.synth_calib_batches(
+        pipe, src, range(CALIB_FRAMES)))
+    return scales, time.perf_counter() - t, pipe
+
+
+def int64_conv(torch, xq, conv):
+    """`conv`'s sum over int8 NCHW `xq`, on the CPU in int64 from the same
+    int8 tensors: per tap of the k x k window, the zero-padded, strided
+    input times the tap's weights (a matmul over channels, or for a
+    depthwise conv a product per channel)."""
+    F = torch.nn.functional
+    x, w = xq.cpu().long(), conv.weight.cpu().long()
+    n, c, h, wd = x.shape
+    k, s, p = conv.k, conv.stride, conv.pad
+    ho, wo = (h + 2 * p - k) // s + 1, (wd + 2 * p - k) // s + 1
+    xp = F.pad(x, (p, p, p, p))
+    acc = torch.zeros(n, w.shape[0], ho, wo, dtype=torch.int64)
+    for dy in range(k):
+        for dx in range(k):
+            tap = xp[:, :, dy:dy + s * (ho - 1) + 1:s, dx:dx + s * (wo - 1) + 1:s]
+            if conv.groups == 1:
+                prod = tap.permute(0, 2, 3, 1).reshape(-1, c) @ w[:, :, dy, dx].t()
+                acc += prod.reshape(n, ho, wo, -1).permute(0, 3, 1, 2)
+            else:
+                acc += tap * w[:, 0, dy, dx][None, :, None, None]
+    return acc
+
+
+def check_int8_sums(torch, run):
+    """For each conv of `INT8_CONVS`, its input on the step's first frame
+    (the step's own preprocess and detect, recorded by a forward
+    pre-hook), quantized on the card: the card's int32 sum equals the
+    CPU's int64 sum of the same int8 tensors, bit for bit."""
+    from rt3d_torch.models.yolo import QConv
+
+    pipe = run["pipe"]
+    seen, handles = {}, []
+    for path in INT8_CONVS:
+        conv = pipe.model.get_submodule(path.replace("/", "."))
+        check(isinstance(conv, QConv), f"2cam_int8: {path} is not quantized")
+        handles.append(conv.register_forward_pre_hook(
+            lambda m, a, path=path: seen.setdefault(path, a[0])))
+    try:
+        with torch.no_grad():
+            pipe.detect(pipe.preprocess(run["frames"][0][0]))
+    finally:
+        for h in handles:
+            h.remove()
+    res = {}
+    for path in INT8_CONVS:
+        conv = pipe.model.get_submodule(path.replace("/", "."))
+        xq = conv.quantize_input(seen[path])
+        acc = conv.int_conv(xq)
+        check(acc.dtype == torch.int32 and acc.is_cuda, f"{path}: sum is {acc.dtype} on {acc.device}")
+        ref = int64_conv(torch, xq, conv)
+        check(torch.equal(acc.cpu().long(), ref),
+              f"{path}: the card's int32 sum differs from the CPU's int64 sum")
+        res[path] = dict(input=list(xq.shape), K=conv.k * conv.k * conv.weight.shape[1],
+                         cout=conv.weight.shape[0], groups=conv.groups,
+                         max_abs_sum=int(ref.abs().max()))
+    return res
+
+
+def time_detect(torch, pipes, frames):
+    """Device ms (CUDA events) of preprocess + detect per frame for each
+    pipeline over the same frames; the median after `WARMUP_FRAMES`."""
+    out = {}
+    for name, pipe in pipes.items():
+        ms = []
+        for rgb, _ in frames:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            with torch.no_grad():
+                pipe.detect(pipe.preprocess(rgb))
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        out[name] = statistics.median(ms[WARMUP_FRAMES:])
+    return out
+
+
+def run_int8_app(torch, np, per_step, frames=REPLAY_BAD + 1):
+    """``python -m rt3d_torch.apps.two_cam --quantize`` in-process on the
+    first `frames` frames of phase 8b's recording (its last frame the one
+    with a failed camera): the x sidecar being stale, it must recalibrate
+    live and step an int8 model. Returns its numbers."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import rt3d_torch.pipeline.step as step_mod
+    from rt3d_torch.models import quant
+
+    tmp = tempfile.mkdtemp(prefix="rt3d_int8_app_")
+    built, build = [], step_mod.build_pipeline
+    step_mod.build_pipeline = lambda cfg, **kw: built.append(build(cfg, **kw)) or built[-1]
+    err = io.StringIO()
+    try:
+        path = os.path.join(tmp, "seq.rts")
+        record_replay(np, path)
+        with contextlib.redirect_stderr(err):
+            res, _ = run_app(torch, tmp, path, per_step, frames - 1, frames=frames,
+                             flags=("--quantize",))
+    finally:
+        step_mod.build_pipeline = build
+        shutil.rmtree(tmp, ignore_errors=True)
+    check("stale sidecar" in err.getvalue(), "two_cam --quantize did not find the x sidecar stale")
+    check(len(built) == 1 and quant.is_quantized(built[0].model),
+          "two_cam --quantize stepped a model that is not quantized")
+    res["quantized_convs"] = len(quant.model_act_scales(built[0].model))
+    del built
     return res
 
 
@@ -765,18 +940,19 @@ def host_outputs(out):
         overflow=out.overflow.item())
 
 
-def run_preset(torch, np, name, n_frames, per_step):
+def run_preset(torch, np, name, n_frames, per_step, **build):
     """Phases of one preset: step `n_frames` synthetic HD720 frames with
     every launch counter checked per step and the outputs checked, then the
-    same frames with every kernel's plain version, compared. Returns the
-    run's numbers, its pipeline, frames and last outputs."""
+    same frames with every kernel's plain version, compared. `build` goes
+    to `synthetic_preset` for both runs. Returns the run's numbers, its
+    pipeline, frames and last outputs."""
     from rt3d_torch.pipeline.presets import synthetic_preset
 
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     t = time.perf_counter()
-    pipe, src = synthetic_preset(name, n_frames)
+    pipe, src = synthetic_preset(name, n_frames, **build)
     frames = []
     for i in range(n_frames):
         pkt = src.get(i)
@@ -809,7 +985,7 @@ def run_preset(torch, np, name, n_frames, per_step):
     phase(f"{name} path", t)
 
     t = time.perf_counter()
-    plain, _ = synthetic_preset(name, n_frames, plain_kernels=True)
+    plain, _ = synthetic_preset(name, n_frames, plain_kernels=True, **build)
     pms, _, pouts, _, _, _ = run_path(torch, plain, frames, {n: 0 for n in per_step})
     exact = ("classes", "det_valid", "track_ids", "pc_points", "pc_valid", "obj_points",
              "obj_valid", "obj_present", "flat_points", "flat_valid", "ws_points", "ws_valid")
@@ -949,10 +1125,11 @@ def record_replay(np, path):
                           np.stack([p.depth for p in pkts]), meta, status)
 
 
-def run_app(torch, tmp, path, per_step, steps):
-    """`rt3d_torch.apps.two_cam.main` in-process on the recording, as a user
-    runs it; checks its exit code, replay backend, CSVs and launches.
-    Returns its printed numbers and launches."""
+def run_app(torch, tmp, path, per_step, steps, frames=REPLAY_FRAMES, flags=()):
+    """`rt3d_torch.apps.two_cam.main` in-process on the first `frames`
+    frames of the recording, as a user runs it (with `flags`); checks its
+    exit code, replay backend, CSVs and launches. Returns its printed
+    numbers and launches."""
     import contextlib
     import csv
     import io
@@ -963,8 +1140,8 @@ def run_app(torch, tmp, path, per_step, steps):
     log_dir = os.path.join(tmp, "runs")
     argv = ["--source", path, "--variant", "x",
             "--weights", os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz"),
-            "--frames", str(REPLAY_FRAMES), "--warmup", "2", "--pipeline-depth", "2",
-            "--device", "cuda", "--log-dir", log_dir]
+            "--frames", str(frames), "--warmup", "2", "--pipeline-depth", "2",
+            "--device", "cuda", "--log-dir", log_dir, *flags]
     out = io.StringIO()
     kernels.reset_launches()
     with contextlib.redirect_stdout(out):
@@ -986,7 +1163,7 @@ def run_app(torch, tmp, path, per_step, steps):
     # as in the JAX driver: a total per good frame, a retrieval per frame read
     check(timing_rows[0] == ["Step", "Timings"]
           and len(rows.get("Total Time per Iteration", ())) == steps
-          and len(rows.get("Frame Retrieval", ())) == REPLAY_FRAMES,
+          and len(rows.get("Frame Retrieval", ())) == frames,
           "timings.csv is not the reference schema with a total per good frame")
     for name, n in per_step.items():
         check(launches[name] == n * steps,
@@ -1230,6 +1407,29 @@ def main() -> int:
     for key in drop:
         runs["stretch_4cam_1mm"].pop(key, None)
 
+    # 11. the int8 backbone: live calibration, the path and its plain run,
+    # the int32 sums against the CPU, detect int8 against bf16, the app
+    t = time.perf_counter()
+    scales, calib_s, bf16_pipe = calibrate_int8(torch)
+    log(f"2cam_int8: live calibration of {len(scales)} convs on 4 frames: {calib_s:.2f} s")
+    phase("2cam_int8 calibration", t)
+    runs["2cam_int8"] = run_preset(torch, np, "2cam_int8", FRAMES, slice_k, act_scales=scales)
+    t = time.perf_counter()
+    int8 = {"calibration_s": calib_s, "sums": check_int8_sums(torch, runs["2cam_int8"])}
+    for path, r in int8["sums"].items():
+        log(f"  {path}: int32 sums equal the CPU's int64 sums ({json.dumps(r)})")
+    int8["detect_ms"] = time_detect(torch, {"int8": runs["2cam_int8"]["pipe"], "bf16": bf16_pipe},
+                                    runs["2cam_int8"]["frames"])
+    log(f"  detect (preprocess + forward + decode + NMS), median device ms over frames "
+        f"{WARMUP_FRAMES}-{FRAMES - 1}: int8 {int8['detect_ms']['int8']:.2f}, "
+        f"bf16 {int8['detect_ms']['bf16']:.2f}")
+    del bf16_pipe
+    for key in drop:
+        runs["2cam_int8"].pop(key, None)
+    int8["app"] = run_int8_app(torch, np, slice_k)
+    log(f"  two_cam --quantize: {json.dumps(int8['app'])}")
+    phase("2cam_int8 sums, detect and app", t)
+
     # 9. every preset against the JAX golden
     t = time.perf_counter()
     gold = check_golden(torch)
@@ -1254,7 +1454,7 @@ def main() -> int:
     log(json.dumps({"presets": {name: {k: r[k] for k in ("steady_ms", "fps", "peak_mib",
                                                           "plain_ms")}
                                 for name, r in runs.items()},
-                    "replay": replay, "accumulator": accum}))
+                    "replay": replay, "accumulator": accum, "int8": int8}))
     log(json.dumps({"golden": gold}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))

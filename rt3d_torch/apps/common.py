@@ -3,15 +3,16 @@
 
 The flags are the JAX apps', plus ``--device`` (default ``cuda``). Flags
 whose paths the port does not have yet refuse with `NotImplementedError`
-naming their ROADMAP item, rather than being ignored: ``--quantize`` (item
-14), ``--live`` and ``--save-frames`` (item 15). A CUDA device without a
-card is refused too.
+naming their ROADMAP item, rather than being ignored: ``--live`` and
+``--save-frames`` (item 15). A CUDA device without a card is refused too.
+``--quantize`` runs the backbone int8 (`maybe_quantize`).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -56,12 +57,12 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "(ReID-fused IoU + GMC), deepsort (appearance-primary under a "
                         "Mahalanobis gate)")
     p.add_argument("--quantize", action="store_true",
-                   help="int8 W8A8 conv stack (not ported: ROADMAP item 14)")
+                   help="int8 W8A8 backbone convs, calibrated on the source unless the "
+                        "weights' act-scales sidecar matches them")
 
 
 # flag -> the ROADMAP item that ports its path
 _UNPORTED = (
-    ("quantize", "--quantize (int8 W8A8) is ROADMAP item 14"),
     ("live", "--live (the live spool and its viewer) is ROADMAP item 15"),
     ("save_frames", "--save-frames (annotated frames, viz.draw and cv2) is ROADMAP item 15"),
 )
@@ -129,3 +130,25 @@ def adopt_source_calibration(cfg: Config, source) -> Config:
     analog of reading ZED factory calibration at startup."""
     cams = source.cameras()
     return with_cameras(cfg, cams) if cams else cfg
+
+
+def maybe_quantize(pipe, source, args, calib_frames: int = 4):
+    """``--quantize``: the int8 conversion of the pipeline's backbone convs
+    (`rt3d_torch.models.quant`), against the scales of the weights'
+    sidecar when its fingerprint matches the weights, else calibrated live
+    on the first `calib_frames` frames of `source` through the pipeline's
+    preprocessing, as the JAX apps do. Returns the activation scales, or
+    None without the flag."""
+    if not getattr(args, "quantize", False):
+        return None
+    from rt3d_torch.models import quant
+
+    scales = None
+    w = pipe.cfg.model.weights
+    if w:
+        sp = quant.sidecar_path(w)
+        if os.path.exists(sp):
+            scales = quant.load_act_scales(sp, weights_path=w)
+    batches = () if scales else quant.synth_calib_batches(
+        pipe, source, frames=tuple(range(calib_frames)))
+    return quant.quantize_pipeline(pipe, w, batches, scales)

@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 def main(argv: Optional[Sequence[str]] = None) -> int:
     from rt3d_torch.apps.common import (
         add_common_args, adopt_source_calibration, check_args, describe_source,
-        load_config, open_source,
+        load_config, maybe_quantize, open_source,
     )
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -34,6 +34,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(describe_source(args, src), flush=True)
         cfg = adopt_source_calibration(cfg, src)
         pipe = build_pipeline(cfg, device=args.device)
+        maybe_quantize(pipe, src, args)
         os.makedirs(args.log_dir, exist_ok=True)
         driver = PipelineDriver(
             pipe, mode=args.mode, pipeline_depth=args.pipeline_depth,

@@ -144,9 +144,9 @@ class TrackerConfig:
     match_thresh: float = 0.7
     fuse_score: bool = True
     max_tracks: int = 64  # fixed track-slot capacity (static shape)
-    # LAP solver: 'greedy' (the only one the PyTorch port has so far),
-    # 'refined' (greedy + swap/move rounds) or 'exact' (Hungarian); the
-    # JAX package documents the quality gap (tests/test_assignment_modes.py)
+    # LAP solver: 'greedy' (the default), 'refined' (greedy + swap/move
+    # rounds) or 'exact' (Hungarian), all three in rt3d_torch.tracking.assignment;
+    # the JAX package documents the quality gap (tests/test_assignment_modes.py)
     assignment: str = "greedy"
     # BoT-SORT appearance extension (reference `trackers/botsort.yaml:14-19`)
     with_reid: bool = False

@@ -15,6 +15,10 @@ Convolutions run in the model's parameter dtype (bf16 on the card via
 `cast_for_inference`, f32 in the CPU tests), with the bias added and the
 SiLU applied in that dtype after the convolution, as `core.conv2d` does.
 Attention scores and their product with the values accumulate in f32.
+
+A conv that `rt3d_torch.models.quant` quantized is a `QConv` instead: int8
+weights and activations, an exact int32 sum and an f32 epilogue, the
+quantized branch of `core.conv2d`.
 """
 
 from __future__ import annotations
@@ -60,6 +64,92 @@ class Conv(nn.Module):
         y = F.conv2d(x, self.weight, None, self.stride, self.pad, 1, self.groups)
         y = y + self.bias[:, None, None]
         return silu(y) if act else y
+
+
+def _int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product (M, K) int8 x (N, K)^T int8 -> (M, N) through
+    `torch._int_mm` (cuBLASLt's int8 GEMM on the card). Its CUDA form wants
+    more than 16 rows and K and N multiples of 8, the second operand
+    column-major; zero rows and columns pad a shape that falls short and
+    add nothing to the sums."""
+    m, k = a.shape
+    n = w.shape[0]
+    pk, pn, pm = -k % 8, -n % 8, max(17 - m, 0)
+    if pk or pm:
+        a = F.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        w = F.pad(w, (0, pk, 0, pn))
+    out = torch._int_mm(a.contiguous(), w.contiguous().t())
+    return out[:m, :n] if pm or pn else out
+
+
+class QConv(nn.Module):
+    """The int8 W8A8 form of `Conv`, the quantized branch of `core.conv2d`:
+    an int8 OIHW weight with f32 per-output-channel `kernel_scale`, an f32
+    per-tensor `act_scale` (the calibrated max |input|) and an f32 bias.
+    Its forward follows `core.conv2d`'s f32 operations one by one, so the
+    bits match: the input rounded half to even against ``127 / act_scale``
+    and clipped to [-127, 127], an exact int32 convolution (`int_conv`),
+    then ``acc * (kernel_scale * (act_scale / 127)) + bias`` and SiLU in
+    f32, cast to the input's dtype. Every tensor is a buffer and keeps its
+    dtype when the model is cast (`_apply`), as the JAX package keeps the
+    scales and the bias f32 when it casts the other convs to bf16."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1,
+                 groups: int = 1, device=None):
+        super().__init__()
+        if groups > 1 and not cin == cout == groups:
+            raise ValueError(f"QConv: a grouped conv must be depthwise (cin {cin}, "
+                             f"cout {cout}, groups {groups})")
+        self.register_buffer("weight", torch.zeros(cout, cin // groups, k, k,
+                                                   dtype=torch.int8, device=device))
+        self.register_buffer("kernel_scale", torch.ones(cout, device=device))
+        self.register_buffer("act_scale", torch.ones((), device=device))
+        self.register_buffer("bias", torch.zeros(cout, device=device))
+        self.k, self.stride, self.pad, self.groups = k, s, k // 2, groups
+
+    def _apply(self, fn, recurse=True):
+        # follow device moves, keep dtypes
+        for name, buf in self._buffers.items():
+            moved = fn(buf)
+            self._buffers[name] = moved if moved.dtype == buf.dtype else buf.to(moved.device)
+        return self
+
+    def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
+        inv = 127.0 / self.act_scale
+        return torch.clamp(torch.round(x.float() * inv), -127.0, 127.0).to(torch.int8)
+
+    def int_conv(self, xq: torch.Tensor) -> torch.Tensor:
+        """The exact int32 convolution of int8 NCHW `xq` with the weight
+        (zero padding k // 2, the conv's stride and groups), NCHW int32 in
+        channels-last memory: an im2col of the padded NHWC input (a reshape
+        for a 1x1 conv) times the (cout, kh * kw * cin) weight, or for a
+        depthwise conv the int32 sum of its k * k tap products."""
+        n, c, h, w = xq.shape
+        k, s, p = self.k, self.stride, self.pad
+        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        xh = xq.permute(0, 2, 3, 1)
+        if k == 1 and s == 1 and self.groups == 1:
+            acc = _int_mm(xh.reshape(-1, c), self.weight.reshape(-1, c))
+            return acc.reshape(n, ho, wo, -1).permute(0, 3, 1, 2)
+        xp = F.pad(xh, (0, 0, p, p, p, p))
+        taps = [xp[:, dy:dy + s * (ho - 1) + 1:s, dx:dx + s * (wo - 1) + 1:s]
+                for dy in range(k) for dx in range(k)]
+        if self.groups > 1:
+            wt = self.weight.reshape(-1, k * k).to(torch.int32)
+            acc = taps[0].to(torch.int32) * wt[:, 0]
+            for t in range(1, k * k):
+                acc = acc + taps[t].to(torch.int32) * wt[:, t]
+            return acc.permute(0, 3, 1, 2)
+        wm = self.weight.permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
+        acc = _int_mm(torch.cat(taps, dim=-1).reshape(-1, k * k * c), wm)
+        return acc.reshape(n, ho, wo, -1).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
+        acc = self.int_conv(self.quantize_input(x))
+        y = acc.float() * (self.kernel_scale * (self.act_scale / 127.0))[:, None, None]
+        y = y + self.bias[:, None, None]
+        return (silu(y) if act else y).to(x.dtype)
 
 
 class ConvModule(nn.Module):
@@ -314,6 +404,11 @@ class YoloSeg(nn.Module):
     def level_channels(self) -> Tuple[int, int, int]:
         return (self._w(256), self._w(512), self._w(1024))
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype of the float parameters (a `QConv` holds none)."""
+        return next(self.parameters()).dtype
+
     def _layer(self, name: str) -> nn.Module:
         return getattr(self, name)
 
@@ -334,8 +429,7 @@ class YoloSeg(nn.Module):
         """images (B, H, W, 3) in [0, 1]. Returns ((box_logits (B, A, 64),
         cls_logits (B, A, nc), mask_coeffs (B, A, nm), protos
         (B, H/4, W/4, nm)), neck features (NCHW))."""
-        dtype = self._layer("0").conv.weight.dtype
-        x = images.to(dtype).permute(0, 3, 1, 2)
+        x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         feats = self.backbone_neck(x)
         return self._layer("23")(feats), feats
 
@@ -347,30 +441,57 @@ def state_dict_from_npz(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
     """The JAX package's flat weights (``np.load("weights/yolo11?_synth_seg.npz")``:
     HWIO conv kernels with BN folded, the proto ConvTranspose as
     ``…/upsample/kernel`` in (kh, kw, I, O)) as this module tree's
-    state_dict (OIHW convs, IOHW ConvTranspose, float32). In memory only."""
+    state_dict (OIHW convs, IOHW ConvTranspose, float32). A quantized
+    conv's ``…/kernel_q8`` (int8 HWIO) becomes its int8 OIHW ``weight``,
+    its ``kernel_scale`` and ``act_scale`` stay float32 (`QConv`). In
+    memory only."""
     sd = {}
     for key, arr in flat.items():
         path, leaf = key.rsplit("/", 1)
-        a = np.asarray(arr, dtype=np.float32)
-        if leaf == "kernel":
+        a = np.asarray(arr, dtype=np.int8 if leaf == "kernel_q8" else np.float32)
+        if leaf in ("kernel", "kernel_q8"):
             a = a.transpose(2, 3, 0, 1) if path.endswith("upsample") else a.transpose(3, 2, 0, 1)
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "kernel_scale", "act_scale"):
             raise ValueError(f"unexpected weight {key!r}")
         sd[f"{path.replace('/', '.')}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(a))
     return sd
 
 
-def load_weights(model: YoloSeg, path: str) -> YoloSeg:
-    """Load a JAX-package ``.npz`` weight file, or an ultralytics ``.pt``
-    checkpoint through `rt3d_torch.models.convert`, into `model` (strict)."""
+def flat_from_model(model: YoloSeg) -> Dict[str, np.ndarray]:
+    """The float parameters of `model` in the JAX package's flat layout, as
+    float32 numpy: the inverse of `state_dict_from_npz`."""
+    flat = {}
+    for name, t in model.named_parameters():
+        path, leaf = name.rsplit(".", 1)
+        a = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            a = a.transpose(2, 3, 0, 1) if path.endswith("upsample") else a.transpose(2, 3, 1, 0)
+            leaf = "kernel"
+        flat[f"{path.replace('.', '/')}/{leaf}"] = np.ascontiguousarray(a)
+    return flat
+
+
+def load_flat(path: str, model: YoloSeg) -> Dict[str, np.ndarray]:
+    """The JAX package's flat weights of a ``.npz`` file, or of an
+    ultralytics ``.pt`` checkpoint through `rt3d_torch.models.convert`."""
     if path.endswith(".pt"):
         from rt3d_torch.models.convert import convert_checkpoint
 
-        flat = convert_checkpoint(path, model)
-    else:
-        with np.load(path) as z:
-            flat = {k: z[k] for k in z.files}
+        return convert_checkpoint(path, model)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_weights(model: YoloSeg, path: str) -> YoloSeg:
+    """Load a weights file (`load_flat`) into `model` (strict); a quantized
+    one (JAX's ``kernel_q8`` triples) swaps in a `QConv` for each of its
+    quantized convs first."""
+    flat = load_flat(path, model)
+    if any(k.endswith("/kernel_q8") for k in flat):
+        from rt3d_torch.models.quant import quantize_model
+
+        quantize_model(model, flat)
     model.load_state_dict(state_dict_from_npz(flat), strict=True)
     return model
 

@@ -6,12 +6,20 @@ Each preset is a reference config function, overrides of its model,
 tracker and pipeline fields, its number of cameras and its committed
 weights. The rig's calibration comes from the synthetic source, as a
 deployment reads it from its cameras; the preset keeps its own frame rate
-and depth floor. The last three are the JAX package's benchmark rows
+and depth floor. The last four are the JAX package's benchmark rows
 (`bench.py`): `stretch_4cam_1mm` its `stretch_4cam_1mm_accum_n` (4 cameras,
 the n model, 1 mm voxels with the capacities grown to the ray counts,
 accumulation fed with the raw rays; conf and dedupe left at the gpu
 preset's, as that row leaves them), `2cam_botsort` and `2cam_deepsort` its
-`botsort` and `deepsort` rows.
+`botsort` and `deepsort` rows, and `2cam_int8` the default row with
+``RT3D_BENCH_QUANT=1``: the backbone's convs int8 (`rt3d_torch.models.quant`),
+calibrated live on the first `CALIB_FRAMES` frames of the preset's source
+(the x model's committed sidecar is stale against its weights), with the
+preprocess and mask-resize dtypes pinned to float32 as that row pins them.
+
+The tracker presets watch a scene of six objects (seed 4), on which
+BoT-SORT, DeepSORT and ByteTrack give three different sets of track IDs
+from the second frame on; the others watch two objects (seed 0).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from rt3d_torch.config import (
     with_cameras,
 )
 from rt3d_torch.io import SyntheticSource
+from rt3d_torch.models.quant import quantize_pipeline, synth_calib_batches
 from rt3d_torch.pipeline.step import Pipeline, build_pipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -39,6 +48,8 @@ class Preset:
     model: Dict = field(default_factory=dict)     # ModelConfig overrides
     tracker: Dict = field(default_factory=dict)   # TrackerConfig overrides
     pipeline: Dict = field(default_factory=dict)  # PipelineConfig overrides
+    scene: Dict = field(default_factory=dict)     # SyntheticSource overrides
+    quantize: bool = False      # int8 backbone, calibrated live
 
     def config(self) -> Config:
         cfg = self.base()
@@ -54,6 +65,9 @@ STRETCH_PIPELINE = dict(
     max_points_fused_flat=32768, workspace_accumulate=True, accum_capacity=1048576,
     accum_skip_prededupe=True)
 
+CALIB_FRAMES = 4
+TRACKER_SCENE = dict(num_objects=6, seed=4)
+
 PRESETS = {
     "2cam": Preset(reference_2cam_config, 2, "yolo11x_synth_seg.npz"),
     "2cam_cpu": Preset(reference_2cam_cpu_config, 2, "yolo11x_synth_seg.npz"),
@@ -61,16 +75,23 @@ PRESETS = {
     "stretch_4cam_1mm": Preset(reference_2cam_config, 4, "yolo11n_synth_seg.npz",
                                model=dict(variant="n"), pipeline=STRETCH_PIPELINE),
     "2cam_botsort": Preset(reference_2cam_config, 2, "yolo11x_synth_seg.npz",
-                           tracker=dict(tracker_type="botsort", with_reid=True, gmc=True)),
+                           tracker=dict(tracker_type="botsort", with_reid=True, gmc=True),
+                           scene=TRACKER_SCENE),
     "2cam_deepsort": Preset(reference_2cam_config, 2, "yolo11x_synth_seg.npz",
-                            tracker=dict(tracker_type="deepsort", with_reid=True)),
+                            tracker=dict(tracker_type="deepsort", with_reid=True),
+                            scene=TRACKER_SCENE),
+    "2cam_int8": Preset(reference_2cam_config, 2, "yolo11x_synth_seg.npz",
+                        model=dict(preprocess_dtype="float32", mask_resize_dtype="float32"),
+                        quantize=True),
 }
 
 
 def preset_source(name: str, frames: int) -> SyntheticSource:
-    """The preset's HD720 synthetic cameras with two objects, scene seed 0."""
+    """The preset's HD720 synthetic cameras, scene seed 0, with two objects
+    unless the preset's scene says otherwise."""
+    scene = {"num_objects": 2, "seed": 0, **PRESETS[name].scene}
     return SyntheticSource(num_cameras=PRESETS[name].cameras, num_frames=frames,
-                           hw=(720, 1280), num_objects=2, seed=0)
+                           hw=(720, 1280), **scene)
 
 
 def preset_weights(name: str) -> str:
@@ -91,9 +112,16 @@ def preset_config(name: str, src: SyntheticSource, dtype: Optional[str] = None) 
 
 
 def synthetic_preset(name: str, frames: int, device="cuda", plain_kernels: bool = False,
-                     dtype: Optional[str] = None) -> Tuple[Pipeline, SyntheticSource]:
-    """(pipeline, source) of preset `name`, its model in `dtype` when given."""
+                     dtype: Optional[str] = None,
+                     act_scales: Optional[Dict[str, float]] = None
+                     ) -> Tuple[Pipeline, SyntheticSource]:
+    """(pipeline, source) of preset `name`, its model in `dtype` when given.
+    A quantized preset's model is quantized against `act_scales` when
+    given, else calibrated live on frames 0 to `CALIB_FRAMES` - 1."""
     src = preset_source(name, frames)
     pipe = build_pipeline(preset_config(name, src, dtype), weights=preset_weights(name),
                           device=device, plain_kernels=plain_kernels)
+    if PRESETS[name].quantize:
+        batches = () if act_scales else synth_calib_batches(pipe, src, range(CALIB_FRAMES))
+        quantize_pipeline(pipe, preset_weights(name), batches, act_scales)
     return pipe, src

@@ -1,5 +1,6 @@
-"""Step driver loop, timing capture and CSV logging of the port (the
-counterpart of `rt3d/runtime`; its pytree checkpointing is ROADMAP item 15).
+"""Step driver loop, timing capture, CSV logging and checkpoints of the port
+(the counterpart of `rt3d/runtime`; `checkpoint` saves and restores the
+pipeline state and the model through one ``.npz``).
 
 Mirrors the reference's logging surface exactly (`fps_log.csv` with
 `Timestamp,FPS` rows and the per-stage `timings.csv`,

@@ -6,8 +6,9 @@ Builds a preset as `chip_smoke.py` does (`rt3d_torch.pipeline.presets`:
 `2cam`, the default config, two HD720 synthetic cameras, yolo11x-seg with
 the committed weights; `2cam_cpu`, the CPU-variant preset with mask erosion
 and workspace SOR; `1cam`, one camera with yolo11l-seg; the 4-camera 1 mm
-accumulating `stretch_4cam_1mm`; `2cam_botsort` and `2cam_deepsort`),
-warms up on two frames, then
+accumulating `stretch_4cam_1mm`; `2cam_botsort` and `2cam_deepsort`;
+`2cam_int8`, the backbone int8, calibrated live), warms up on two frames,
+then
 
 * times every stage of `Pipeline.step` on its own, with a synchronize
   before and after it: device ms from CUDA events and host wall ms;

@@ -7,17 +7,21 @@ thing:
   CSV checks of `tests/test_cli_apps.py`;
 - `save_ply` and the timing CSVs byte for byte against the JAX package's;
 - every flag the port refuses, with its ROADMAP item, and the
-  accumulation and tracker flags, whose configs equal the JAX apps';
+  accumulation, tracker and ``--quantize`` flags, whose configs equal the
+  JAX apps' (with ``--quantize`` also the calibrated scales);
 - `record` against the JAX recorder, byte for byte but for `generator`;
 - `convert_weights` against the JAX converter, array for array, and a
   `.pt` weights path against its `.npz`.
 """
 
+import argparse
 import csv
 import json
+import os
 import sys
 import threading
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -36,6 +40,7 @@ from rt3d_torch.viz.cloud import save_ply
 from tests.tiny import H, W, tiny_config
 
 APPS = {"two_cam": (two_cam, 2), "one_cam": (one_cam, 1)}
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -140,7 +145,6 @@ def test_timing_csvs_match_jax_layout(tmp_path):
 
 
 REFUSED = [
-    (["--quantize"], "ROADMAP item 14"),
     (["--live", "spool"], "ROADMAP item 15"),
     (["--save-frames"], "ROADMAP item 15"),
 ]
@@ -181,6 +185,62 @@ def test_accumulate_flags_run(app, flags, rts, tmp_path, monkeypatch):
     assert cfg.pipeline.workspace_accumulate
     assert cfg.pipeline.accum_skip_prededupe == ("--accum-raw" in flags)
     assert cfg.pipeline == Config.from_dict(_jax_config(flags, tmp_path, cams).to_dict()).pipeline
+
+
+@pytest.mark.parametrize("app", sorted(APPS))
+def test_quantize_flag_runs(app, rts, tmp_path, monkeypatch, capsys):
+    """``--quantize``, refused before the int8 slice, runs: with the
+    weights' sidecar stale the app recalibrates live on the first 4 frames
+    of the recording, as the JAX apps do, and steps two frames with the
+    backbone int8. Its config equals the JAX apps' for the same flags, and
+    its activation scales the JAX app's (`maybe_quantize_params` on the same
+    recording, float32 on both sides) within 1e-5 relative."""
+    import shutil
+
+    from rt3d.apps import common as jcommon
+    from rt3d.io.source import ReplaySource as JReplaySource
+    from rt3d.models.yolo import core as ycore
+    from rt3d.pipeline.step import build_pipeline as jbuild_pipeline
+    from rt3d_torch.models import quant
+
+    mod, cams = APPS[app]
+    cfg_path = tmp_path / "tiny_f32.json"
+    d = tiny_config(num_cameras=cams).to_dict()
+    d["model"].update(compute_dtype="float32", preprocess_dtype="float32",
+                      mask_resize_dtype="float32")
+    Config.from_dict(d).to_json(str(cfg_path))
+    weights = tmp_path / "yolo11n.npz"
+    shutil.copy(os.path.join(ROOT, "weights", "yolo11n_synth_seg.npz"), weights)
+    quant.save_act_scales(quant.sidecar_path(str(weights)), {"1/conv": 1.0}, weights_path=rts)
+    built = []
+    monkeypatch.setattr("rt3d_torch.pipeline.step.build_pipeline",
+                        lambda cfg, **kw: built.append(build_pipeline(cfg, **kw)) or built[-1])
+    flags = ["--config", str(cfg_path), "--weights", str(weights), "--quantize"]
+    assert mod.main(["--source", rts, "--frames", "2", "--device", "cpu",
+                     "--log-dir", str(tmp_path / "runs"), *flags]) == 0
+    assert "stale sidecar" in capsys.readouterr().err
+    pipe = built[0]
+    scales = quant.model_act_scales(pipe.model)
+    assert quant.is_quantized(pipe.model) and len(scales) == 43
+    ap = argparse.ArgumentParser()
+    jcommon.add_common_args(ap)
+    args = ap.parse_args(["--source", rts, *flags])
+    jcfg = jcommon.load_config(args, num_cameras=cams)
+    assert Config.from_dict(jcfg.to_dict()).model == pipe.cfg.model
+    assert Config.from_dict(jcfg.to_dict()).pipeline == pipe.cfg.pipeline
+    jsrc = JReplaySource(rts, loop=True)
+    jcfg = jcommon.adopt_source_calibration(jcfg, jsrc)
+    jpipe = jbuild_pipeline(jcfg)
+    ycore.set_compute_dtype(jax.numpy.float32)
+    try:
+        jq = jcommon.maybe_quantize_params(jpipe, jcommon.load_model_params(jpipe, jcfg),
+                                           jsrc, args)
+    finally:
+        ycore.set_compute_dtype(jax.numpy.bfloat16)
+    jscales = {k[:-len("/act_scale")]: float(v) for k, v in jq.items()
+               if k.endswith("/act_scale")}
+    assert jscales.keys() == scales.keys()
+    assert max(abs(scales[k] - jscales[k]) / jscales[k] for k in scales) < 1e-5
 
 
 @pytest.mark.parametrize("tracker", ["botsort", "deepsort"])

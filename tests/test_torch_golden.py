@@ -5,10 +5,12 @@ The files `tests/golden_torch/<preset>.npz` come from
 `tools/make_torch_golden.py`: the JAX package's step in float32, op by op,
 on the CPU, over the first two HD720 frames of each preset with its
 committed weights. Here each file meets itself; a golden with one voxel,
-one class or one track ID changed is refused; and the port itself, on the
-CPU in float32, meets the 1cam golden on frame 0 (one HD720 step of
-yolo11l, about 12 s). On the card `chip_smoke.py` holds every preset's
-float32 step against its golden.
+one class, one track ID or one of a tracker preset's records changed is
+refused; the two tracker goldens tell BoT-SORT, DeepSORT and ByteTrack
+apart; the 2cam_int8 golden's stored activation scales quantize the x
+weights; and the port itself, on the CPU in float32, meets the 1cam golden
+on frame 0 (one HD720 step of yolo11l, about 12 s). On the card
+`chip_smoke.py` holds every preset's float32 step against its golden.
 """
 
 import os
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from rt3d_torch import golden
+from rt3d_torch.models import quant
 from rt3d_torch.pipeline.presets import PRESETS, synthetic_preset
 
 FRAMES = 2
@@ -47,7 +50,10 @@ def _changed(g: dict, change: str) -> dict:
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_golden_meets_itself(preset):
     """Every difference of a golden from itself is 0, and each frame holds
-    detections with track IDs, fused object points and a workspace."""
+    detections with track IDs (every one of frame 0's, which all start
+    tracks; later a detection that starts a track has none until it is
+    confirmed, ID -1, as in the tracker presets' scene), fused object
+    points and a workspace."""
     g = golden.load_golden(preset)
     m = golden.measure(g, g)
     golden.check_bands(m)
@@ -55,7 +61,9 @@ def test_golden_meets_itself(preset):
     assert all(v == 0 for k, v in m.items() if k not in ("frames", "ws_kept"))
     for i in range(FRAMES):
         valid = g[f"f{i}_det_valid"]
-        assert valid.any() and (g[f"f{i}_track_ids"][valid] > 0).all()
+        ids = g[f"f{i}_track_ids"][valid]
+        assert valid.any() and (ids > 0).any() and ((ids > 0) | (ids == -1)).all()
+        assert i > 0 or (ids > 0).all()
         assert g[f"f{i}_obj_counts"].sum() > 100 and len(g[f"f{i}_ws_points"]) > 10000
         assert g[f"f{i}_obj_counts"].sum() == len(g[f"f{i}_obj_points"])
 
@@ -147,3 +155,78 @@ def test_lattice_coding_round_trips(tmp_path, monkeypatch):
             np.testing.assert_array_equal(back[k], v, err_msg=k)
     off = {**g, "f0_ws_points": g["f0_ws_points"] + np.float32(1e-4)}
     assert "f0_ws_points" in golden.encode_lattice(off, 0.005)
+
+
+TRACKERS = ("2cam_botsort", "2cam_deepsort")
+
+
+def test_tracker_goldens_tell_the_trackers_apart():
+    """The BoT-SORT and DeepSORT goldens differ as files. Each records per
+    frame the detections' embeddings and the IDs that ByteTrack alone gives
+    on the same detections (the same in both), and its own track IDs
+    differ from ByteTrack's, and from the other tracker's, on some frame;
+    BoT-SORT's GMC warps are recorded and are not all the identity."""
+    files = [open(golden.golden_path(p), "rb").read() for p in TRACKERS]
+    assert files[0] != files[1]
+    gb, gd = (golden.load_golden(p) for p in TRACKERS)
+    n = int(gb["frames"])
+    for g in (gb, gd):
+        assert all(g[f"f{i}_det_emb"].shape == (2, 20, 64) for i in range(n))
+        assert any(not np.array_equal(g[f"f{i}_track_ids"], g[f"f{i}_bytetrack_ids"])
+                   for i in range(n))
+    assert all(np.array_equal(gb[f"f{i}_bytetrack_ids"], gd[f"f{i}_bytetrack_ids"])
+               for i in range(n))
+    assert any(not np.array_equal(gb[f"f{i}_track_ids"], gd[f"f{i}_track_ids"])
+               for i in range(n))
+    warps = np.stack([gb[f"f{i}_gmc_warp"] for i in range(n)])
+    assert warps.shape == (n, 2, 2, 3)
+    assert not np.allclose(warps, np.eye(2, 3, dtype=np.float32), rtol=0, atol=1e-6)
+    assert not any(k.endswith("_gmc_warp") for k in gd)
+
+
+@pytest.mark.parametrize("change", ["det_emb", "gmc_warp", "gmc_shift", "bytetrack_ids",
+                                    "missing"])
+def test_golden_comparison_refuses_tracker_extras(change):
+    """A BoT-SORT record whose embedding moved 1e-3, whose warp's linear
+    part moved 2e-3 or translation 0.1 px, whose ByteTrack ID changed, or
+    which lacks the records, is refused."""
+    g = golden.load_golden("2cam_botsort")
+    got = {k: v.copy() for k, v in g.items()}
+    det = tuple(np.argwhere(g["f1_det_valid"])[0])
+    if change == "det_emb":
+        got["f1_det_emb"][det] += np.float32(1e-3)
+    elif change == "gmc_warp":
+        got["f1_gmc_warp"][0, 0, 1] += np.float32(2e-3)
+    elif change == "gmc_shift":
+        got["f1_gmc_warp"][1, 1, 2] += np.float32(0.1)
+    elif change == "bytetrack_ids":
+        got["f1_bytetrack_ids"][det] += 1
+    else:
+        del got["f1_det_emb"], got["f1_gmc_warp"]
+    m = golden.measure(got, g)
+    key = {"det_emb": "emb_max", "gmc_warp": "warp_max", "gmc_shift": "warp_shift_max",
+           "bytetrack_ids": "bytetrack_id", "missing": "extras_missing"}[change]
+    assert m[key] > 0
+    with pytest.raises(AssertionError, match=key):
+        golden.check_bands(m, "2cam_botsort")
+
+
+def test_int8_golden_decodes_with_its_scales():
+    """2cam_int8's golden stores the activation scales of the JAX package's
+    float32 calibration, one per conv of the x model; the x weights
+    quantized against them (numpy only: no HD720 x step on this CPU) hold
+    them in their 98 int8 convs, as phase 9 of `chip_smoke.py` loads them.
+    The golden's detections carry track IDs and its frames object voxels."""
+    from rt3d_torch.models.yolo import YoloSeg, load_flat
+    from rt3d_torch.pipeline.presets import preset_weights
+
+    g = golden.load_golden("2cam_int8")
+    scales = golden.golden_act_scales(g)
+    assert len(scales) == 185 and min(scales.values()) > 0
+    model = YoloSeg(variant="x")
+    q = quant.quantize_params(model, load_flat(preset_weights("2cam_int8"), model), (),
+                              act_scales=scales)
+    got = {k[:-len("/act_scale")]: float(v) for k, v in q.items() if k.endswith("/act_scale")}
+    assert got == {p: v for p, v in scales.items() if not quant.default_exclude(p)}
+    assert len(got) == 98
+    assert PRESETS["2cam_int8"].quantize and int(g["frames"]) == FRAMES

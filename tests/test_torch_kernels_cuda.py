@@ -516,3 +516,43 @@ def test_accumulate_voxels_on_card_equals_cpu(gen, capacity):
                                                                                 min_weight=0.5)
     assert torch.equal(ge.valid.cpu()[~band], ce.valid[~band])
     assert torch.equal(ge.points.cpu()[~band], ce.points[~band])
+
+
+# (cin, cout, k, stride, groups, hw): x's stage-1 conv, its K = 6912 conv,
+# a depthwise `pe` conv, and shapes the int8 GEMM pads (K 27 and cout 6;
+# 12 rows)
+QCONVS = [(96, 192, 3, 2, 1, (96, 160)), (768, 768, 3, 2, 1, (24, 40)),
+          (384, 384, 3, 1, 384, (12, 20)), (3, 6, 3, 2, 1, (5, 6)), (64, 40, 1, 1, 1, (2, 3))]
+
+
+@pytest.mark.parametrize("cin,cout,k,s,g,hw", QCONVS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_conv_on_card_equals_cpu(gen, cin, cout, k, s, g, hw, dtype):
+    """`QConv` on the card against the same module on the CPU: the int8
+    input and the int32 sums the same integers (cuBLASLt's int8 GEMM, or the
+    depthwise tap sum), the output within 1e-6 in f32 (the two devices'
+    sigmoids may differ by an ulp) and one bf16 ulp in bf16."""
+    import copy
+
+    from rt3d_torch.models.yolo import QConv
+
+    cpu_gen = torch.Generator().manual_seed(cin + cout)
+    conv = QConv(cin, cout, k, s, g)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randint(-127, 128, conv.weight.shape, generator=cpu_gen)
+                          .to(torch.int8))
+        conv.kernel_scale.copy_(torch.rand(cout, generator=cpu_gen) * 0.02 + 1e-3)
+        conv.act_scale.fill_(3.0)
+        conv.bias.copy_(torch.randn(cout, generator=cpu_gen))
+    x = (torch.randn(2, cin, *hw, generator=cpu_gen) * 1.5).to(dtype)
+    card = copy.deepcopy(conv).cuda()
+    xc = x.cuda().contiguous(memory_format=torch.channels_last)
+    xq, xq_card = conv.quantize_input(x), card.quantize_input(xc)
+    assert torch.equal(xq_card.cpu(), xq)
+    acc, acc_card = conv.int_conv(xq), card.int_conv(xq_card)
+    assert acc_card.dtype == torch.int32 and acc_card.is_cuda
+    assert torch.equal(acc_card.cpu(), acc)
+    y, yc = conv(x, act=True), card(xc, act=True)
+    assert yc.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(yc.cpu(), y, rtol=tol, atol=tol)

@@ -16,6 +16,16 @@ first synthetic HD720 frames with carried state, and
 `rt3d_torch.golden.record` of its outputs, its voxel-centre points
 lattice-coded (`encode_lattice`), goes to `tests/golden_torch/<preset>.npz`.
 
+A tracker preset's golden also records, per frame, what its step's tracker
+was given (`rt3d_torch.golden.Probe` on the port's side): the detections'
+embeddings from `detect`, the GMC warps the step computes (after
+`rescale_warp`, by the step's own functions) and the track IDs that
+ByteTrack alone, with the preset's thresholds, gives on the same
+detections. A quantized preset is quantized as the JAX apps do it: the
+model calibrated live (in float32) on frames 0 to `CALIB_FRAMES` - 1 of the
+source through the pipeline's preprocessing, then `quant.quantize_params`
+on the float32 weights; its golden stores the activation scales used.
+
 The JAX step's subtraction (`min_sqdist_to_set`, its CPU form) makes an
 (N, 2048) matrix of all N workspace queries at once: 8 GiB at the 4-camera
 stretch preset's 1 048 576 queries. Here it is called on blocks of 65 536
@@ -34,18 +44,22 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import rt3d.config as jconfig  # noqa: E402
 import rt3d.geometry.subtract as jsubtract  # noqa: E402
 from rt3d.models.yolo import core as ycore  # noqa: E402
+from rt3d.models.yolo import quant as jquant  # noqa: E402
 from rt3d.models.yolo.convert import load_params  # noqa: E402
 from rt3d.pipeline.step import CameraCalib as JCalib  # noqa: E402
 from rt3d.pipeline.step import build_pipeline as jbuild_pipeline  # noqa: E402
+from rt3d.tracking import botsort as jbotsort  # noqa: E402
+from rt3d.tracking.bytetrack import bytetrack_init, bytetrack_step  # noqa: E402
 from rt3d_torch.golden import GOLDEN_DIR, encode_lattice, golden_path, record  # noqa: E402
 from rt3d_torch.pipeline.presets import (  # noqa: E402
-    PRESETS, preset_config, preset_source, preset_weights,
+    CALIB_FRAMES, PRESETS, preset_config, preset_source, preset_weights,
 )
 
 QUERY_BLOCK = 65536
@@ -70,8 +84,43 @@ def jax_config(name: str) -> jconfig.Config:
         pipeline=dataclasses.replace(cfg.pipeline, **p.pipeline))
 
 
+def probe_track(pipe, frames: list) -> None:
+    """Wrap `pipe.track` (the JAX step's) so that each call appends to
+    `frames` the extras of `rt3d_torch.golden.record`: the embeddings it is
+    given, the GMC warps it computes (the step's own code, step.py:260-287)
+    and ByteTrack's IDs on the same detections, from a ByteTrack state of
+    its own."""
+    track, t = pipe.track, pipe.cfg.tracker
+    fps = pipe.cfg.rig.cameras[0].fps
+    bt = [jax.vmap(lambda _: bytetrack_init(t.max_tracks, emb_dim=t.emb_dim))(
+        jnp.arange(pipe.cfg.rig.num_cameras))]
+
+    def probed(state, det, det_emb=None, images=None):
+        bt[0], ids = jax.vmap(lambda ts, d: bytetrack_step(ts, d, t, frame_rate=fps))(bt[0], det)
+        frame = {"bytetrack_ids": ids}
+        if det_emb is not None:
+            frame["det_emb"] = det_emb
+        if pipe._use_gmc and images is not None:
+            gh, gw = pipe._gray_hw()
+            gray = jax.vmap(lambda im: jax.image.resize(im.mean(axis=-1), (gh, gw), "linear"))(
+                images.astype(jnp.float32))
+            if t.gmc_method == "affine":
+                warps = jax.vmap(jbotsort.estimate_affine_gmc)(state.prev_gray, gray)
+            else:
+                warps = jax.vmap(lambda a, b: jbotsort.translation_warp(
+                    jbotsort.estimate_translation_gmc(a, b)))(state.prev_gray, gray)
+            meta = pipe._meta()
+            frame["gmc_warp"] = jax.vmap(lambda wp: jbotsort.rescale_warp(
+                wp, meta.ratio / 4.0, (meta.pad_left / 4.0, meta.pad_top / 4.0)))(warps)
+        frames.append(frame)
+        return track(state, det, det_emb=det_emb, images=images)
+
+    object.__setattr__(pipe, "track", probed)
+
+
 def golden_outputs(name: str, frames: int) -> tuple:
-    """(config, JAX outputs per frame) of preset `name` in float32."""
+    """(config, JAX outputs per frame, extras per frame or None, activation
+    scales or None) of preset `name` in float32."""
     if PRESETS[name].config().to_dict() != jax_config(name).to_dict():
         raise SystemExit(f"{name}: the port's preset config differs from the JAX package's")
     src = preset_source(name, frames)
@@ -81,10 +130,17 @@ def golden_outputs(name: str, frames: int) -> tuple:
     params = {k: jnp.asarray(v, jnp.float32)
               for k, v in load_params(preset_weights(name)).items()}
     state, calib = pipe.init_state(), JCalib.from_config(jcfg)
-    outs = []
+    outs, extras, scales = [], None, None
+    if pipe._use_reid or pipe._use_gmc:
+        extras = []
+        probe_track(pipe, extras)
     ycore.set_compute_dtype(jnp.float32)
     jsubtract.min_sqdist_to_set = _blocked_min_sqdist
     try:
+        if PRESETS[name].quantize:
+            scales = jquant.collect_act_scales(pipe.model, params, jquant.synth_calib_batches(
+                pipe, src, frames=tuple(range(CALIB_FRAMES))))
+            params = jquant.quantize_params(pipe.model, params, (), act_scales=scales)
         for i in range(frames):
             pkt = src.get(i)
             state, out = pipe.step(params, state, jnp.asarray(pkt.rgb),
@@ -93,7 +149,7 @@ def golden_outputs(name: str, frames: int) -> tuple:
     finally:
         ycore.set_compute_dtype(jnp.bfloat16)
         jsubtract.min_sqdist_to_set = _min_sqdist_to_set
-    return cfg, outs
+    return cfg, outs, extras, scales
 
 
 def main() -> None:
@@ -104,8 +160,13 @@ def main() -> None:
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for name in args.preset:
         t = time.perf_counter()
-        cfg, outs = golden_outputs(name, args.frames)
-        rec = record(outs, cfg.pipeline.subtraction_threshold, cfg.pipeline.workspace_accumulate)
+        cfg, outs, extras, scales = golden_outputs(name, args.frames)
+        rec = record(outs, cfg.pipeline.subtraction_threshold, cfg.pipeline.workspace_accumulate,
+                     extras)
+        if scales is not None:
+            paths = sorted(scales)
+            rec["act_paths"] = np.array(paths)
+            rec["act_scales"] = np.array([scales[p] for p in paths], np.float32)
         np.savez_compressed(golden_path(name), **encode_lattice(rec, cfg.pipeline.voxel_size))
         dets = [int(rec[f"f{i}_det_valid"].sum()) for i in range(args.frames)]
         objs = [int(rec[f"f{i}_obj_counts"].sum()) for i in range(args.frames)]
