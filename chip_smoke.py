@@ -80,7 +80,25 @@ Phases, each printing its wall seconds:
      GMC warps and ByteTrack IDs; 2cam_int8 quantized against the golden's
      scales, with the card's own float32 calibration held against them);
      then its usual bf16 step over the same frames, whose differences are
-     printed only.
+     printed only;
+  12. the training path (`rt3d_torch.train`, `rt3d_torch.apps.train_synth`):
+     (a) the float32 step (TF32 off) of yolo11x-seg with the committed
+     weights on the `train_x` golden's batch (two HD720 frames rebuilt from
+     its seed, their hashes checked), then one update of the trainer's
+     optimizer, held within the golden's bands (`rt3d_torch.golden`:
+     loss and parts, the global and every leaf's gradient norm, the head's
+     last biases' gradients, every leaf's update norm); (b) the trainer
+     called in-process: the x model at batch 8, resumed from the committed
+     weights, 30 bf16 steps on 4 scenes x 2 frames x 2 cameras of HD720
+     `mix` data, every loss finite, device ms a step (CUDA events, median
+     of the steady steps), images/s, peak memory, the render and staging
+     seconds, the kernel time of a step's forward, backward and optimizer
+     and its top device ops (`profile_op_times`), and its saved
+     `.npz` driving a frame of the 2cam preset; (c) the port's
+     `evaluate_weights` on the committed x weights at the manifest's eval
+     settings (10 hard frames, its seed, conf 0.25), held to the x bars of
+     `tests/test_detection_loop.py` (copied here), the easy family beside
+     it.
 
 Fails (non-zero exit, no result line) when no CUDA device is present, when
 the port is missing beside this file, or when any check fails. The last
@@ -94,6 +112,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -889,6 +908,178 @@ def run_int8_app(torch, np, per_step, frames=REPLAY_BAD + 1):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 30
+TRAIN_BATCH = 8
+# the x bars of the shipped weights' held-out eval (MANIFEST_BARS["x"] in
+# tests/test_detection_loop.py, copied: this script imports no test)
+MANIFEST_BARS_X = {"recall": 0.93, "mean_iou": 0.78, "precision": 0.65,
+                   "precision_at_08": 0.70, "easy_recall": 0.95, "easy_precision": 0.90}
+
+
+def train_golden_step(torch, np):
+    """(a) The float32 step of the x model on the `train_x` golden's batch,
+    rebuilt from its seed (the hashes checked), then one update of the
+    trainer's optimizer at warm-up 0, held within the golden's bands."""
+    from rt3d_torch import golden
+    from rt3d_torch.models.postprocess import letterbox_params, preprocess_frame
+    from rt3d_torch.models.yolo import YoloSeg, flat_from_named, load_weights
+    from rt3d_torch.train.data import build_synth_dataset
+    from rt3d_torch.train.loss import seg_detection_loss
+    from rt3d_torch.train.step import synth_optimizer
+
+    model = load_weights(YoloSeg(variant="x", num_classes=80, input_hw=(384, 640)),
+                         golden.TRAIN_WEIGHTS)
+    model = model.to("cuda", memory_format=torch.channels_last).set_compute_dtype(torch.float32)
+    t = time.perf_counter()
+    batch = golden.train_batch(build_synth_dataset(model, **golden.TRAIN_DATA))
+    render_s = time.perf_counter() - t
+    meta = letterbox_params(golden.TRAIN_DATA["hw"], model.input_hw)
+    images = torch.stack([preprocess_frame(torch.from_numpy(f).cuda(), meta)
+                          for f in batch["images"]])
+    targets = {k: torch.from_numpy(batch[k]).cuda() for k in golden.TRAIN_TARGETS}
+    params = dict(model.named_parameters())
+    loss, parts = seg_detection_loss(model, images, targets)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
+        torch.autograd.grad(loss, list(params.values()), allow_unused=True), params.values())]
+    grads_np = flat_from_named(zip(params, grads))
+    before = {k: p.detach().clone() for k, p in params.items()}
+    params_np = flat_from_named(before.items())
+    opt = synth_optimizer(**golden.TRAIN_OPT)
+    with torch.no_grad():
+        opt.step(opt.make(params), params, grads, opt.init(params))
+    updates = flat_from_named((k, p.detach() - before[k]) for k, p in params.items())
+    rec = golden.train_record(float(loss.detach()), {k: float(v) for k, v in parts.items()},
+                              grads_np, updates, params_np, golden.batch_hashes(batch))
+    with np.load(golden.golden_path(golden.TRAIN_GOLDEN)) as z:
+        ref = {k: z[k] for k in z.files}
+    m = golden.measure_train(rec, ref)
+    log(f"train_x golden step (f32, TF32 off; batch rendered in {render_s:.2f} s): "
+        f"loss {float(rec['loss']):.6f} (golden {float(ref['loss']):.6f}), grad norm "
+        f"{float(rec['grad_global_norm']):.6f} (golden {float(ref['grad_global_norm']):.6f}); "
+        f"differences {json.dumps(m)}")
+    golden.check_train_bands(m)
+    return dict(m, loss=float(rec["loss"]), golden_loss=float(ref["loss"]), render_s=render_s)
+
+
+TRAIN_WARMUP_STEPS = 3  # steps left out of the steady step times
+
+
+def run_trainer(torch, np, tmp, smi):
+    """(b) `rt3d_torch.apps.train_synth` in-process: the x model at batch 8,
+    resumed from the committed weights, about 30 bf16 steps on 4 scenes x
+    2 frames x 2 cameras of HD720 `mix` data; every loss finite; its
+    saved `.npz` drives one frame of the 2cam preset; a step's device ops
+    profiled."""
+    from rt3d_torch.apps import train_synth
+    from rt3d_torch.pipeline.presets import preset_config, preset_source
+    from rt3d_torch.pipeline.step import build_pipeline
+    from rt3d_torch.runtime.profiling import format_op_times, profile_op_times
+    from rt3d_torch.train.loss import seg_detection_loss
+
+    out = os.path.join(tmp, "x_train.npz")
+    args = train_synth.parse_args([
+        "--variant", "x", "--batch", str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
+        "--scenes", "4", "--frames-per-scene", "2", "--resume",
+        os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz"), "--lr", "5e-5",
+        "--eval-frames", "1", "--out", out])
+    # the user's settings: cuDNN may pick nondeterministic algorithms
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        res = train_synth.train(args)
+        check(res["rc"] == 0, f"train_synth returned {res['rc']}")
+        losses = res["losses"]
+        check(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} steps ran")
+        check(all(np.isfinite(list(m.values())).all() for m in losses),
+              "a training loss is not finite")
+        # the kernels of the forward (with the loss), of the forward and
+        # backward, and of the whole step on the last batch
+        model, batch, params = res["model"], res["batch"], list(res["model"].parameters())
+
+        def fwd_bwd():
+            loss, _ = seg_detection_loss(model, batch["images"], batch)
+            return torch.autograd.grad(loss, params, allow_unused=True)
+
+        fwd_ms, _ = profile_op_times(lambda: seg_detection_loss(model, batch["images"], batch),
+                                     iters=2)
+        fb_ms, _ = profile_op_times(fwd_bwd, iters=2)
+        total, per_op = profile_op_times(lambda: res["step_fn"](res["state"], batch), iters=2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    step_ms = statistics.median(res["step_ms"][TRAIN_WARMUP_STEPS:])
+    split = {"forward": fwd_ms, "backward": fb_ms - fwd_ms, "optimizer": total - fb_ms}
+    r = {k: res[k] for k in ("render_s", "stage_s", "train_s", "peak_mib", "samples")}
+    r.update(step_ms=step_ms, first_step_ms=res["step_ms"][0],
+             images_per_s=TRAIN_BATCH * 1e3 / step_ms, steps_per_s=1e3 / step_ms,
+             wall_steps_per_s=TRAIN_STEPS / res["train_s"], kernel_ms=total,
+             device_busy=total / step_ms, kernel_split_ms=split,
+             first_loss=losses[0], last_loss=losses[-1])
+    log(f"  {smi}: train_synth x, batch {TRAIN_BATCH}, {TRAIN_STEPS} bf16 steps: device ms "
+        f"a step {step_ms:.2f} (median of steps "
+        f"{TRAIN_WARMUP_STEPS}-{TRAIN_STEPS - 1}; step 0 {res['step_ms'][0]:.1f}), "
+        f"{r['images_per_s']:.1f} images/s, {r['steps_per_s']:.2f} steps/s "
+        f"({r['wall_steps_per_s']:.2f} by the wall clock, step 0 included), peak "
+        f"{r['peak_mib']:.1f} MiB; dataset of {r['samples']} samples rendered in "
+        f"{r['render_s']:.2f} s, staged in {r['stage_s']:.2f} s; loss "
+        f"{losses[0]['loss']:.4f} -> {losses[-1]['loss']:.4f}")
+    log(f"  profiled (2 calls each): kernels {total:.2f} ms a step ({total / step_ms:.3f} of "
+        f"the step's device ms); kernel ms of the forward with the loss, the backward and the "
+        f"optimizer: {json.dumps({k: round(v, 3) for k, v in split.items()})}\n"
+        + format_op_times(total, per_op, top=12))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the saved weights drive the 2cam preset
+    src = preset_source("2cam", 1)
+    pipe = build_pipeline(preset_config("2cam", src), weights=out, device="cuda")
+    pkt = src.get(0)
+    _, o = pipe.step(pipe.init_state(), torch.from_numpy(pkt.rgb).cuda(),
+                     torch.from_numpy(pkt.depth).cuda(), pipe.calib())
+    n_det = int(o.detections.valid.sum())
+    check(n_det > 0 and bool(torch.isfinite(o.detections.boxes).all()),
+          "the trained weights found nothing in the 2cam frame")
+    log(f"  {os.path.basename(out)} ({os.path.getsize(out) / 1e6:.1f} MB) in the 2cam preset: "
+        f"{n_det} detections on frame 0")
+    r["preset_detections"] = n_det
+    return r
+
+
+def check_eval(torch):
+    """(c) The port's `evaluate_weights` on the committed x weights at the
+    manifest's eval settings, held to the x bars, the easy family beside
+    it."""
+    from rt3d_torch.train.eval import evaluate_weights
+
+    path = os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz")
+    with open(os.path.splitext(path)[0] + ".json") as f:
+        manifest = json.load(f)
+    ev = dict(variant="x", hw=tuple(manifest["train_hw"]), input_hw=tuple(manifest["input_hw"]),
+              num_frames=manifest["eval"]["frames"], seed=manifest["seed"] + 777,
+              conf_thresh=manifest["eval"]["conf_thresh"], device="cuda")
+    hard = evaluate_weights(path, domain="hard", **ev)
+    easy = evaluate_weights(path, domain="easy", **ev)
+    keep = ("recall", "mean_iou", "precision", "fp_per_frame", "tp", "fp_dup",
+            "fp_misclass", "fp_ghost", "gt_instances")
+    log(f"  eval of {os.path.basename(path)} (seed {ev['seed']}, {ev['num_frames']} frames, "
+        f"conf {ev['conf_thresh']}): hard {json.dumps({k: hard[k] for k in keep})}, precision "
+        f"@0.8 {hard['by_conf']['0.8']['precision']:.4f}; easy "
+        f"{json.dumps({k: easy[k] for k in keep})}; the JAX manifest's: hard recall "
+        f"{manifest['eval']['recall']:.4f}, mean IoU {manifest['eval']['mean_iou']:.4f}, "
+        f"precision {manifest['eval']['precision']:.4f}")
+    b = MANIFEST_BARS_X
+    for key, got in (("recall", hard["recall"]), ("mean_iou", hard["mean_iou"]),
+                     ("precision", hard["precision"]),
+                     ("precision_at_08", hard["by_conf"]["0.8"]["precision"]),
+                     ("easy_recall", easy["recall"]), ("easy_precision", easy["precision"])):
+        check(got >= b[key], f"eval: {key} {got:.4f} under the x bar {b[key]}")
+    return {"hard": {k: hard[k] for k in keep}, "hard_precision_at_08":
+            hard["by_conf"]["0.8"]["precision"], "easy": {k: easy[k] for k in keep}}
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-8: the presets' paths
 # ---------------------------------------------------------------------------
 
@@ -1435,6 +1626,18 @@ def main() -> int:
     gold = check_golden(torch)
     phase("golden", t)
 
+    # 12. the training path: the golden step, the trainer, the evaluation
+    t = time.perf_counter()
+    train = {"golden_step": train_golden_step(torch, np)}
+    phase("train_x golden step", t)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rt3d_train_") as tmp:
+        train["trainer"] = run_trainer(torch, np, tmp, smi)
+    phase("train_synth x", t)
+    t = time.perf_counter()
+    train["eval"] = check_eval(torch)
+    phase("eval of the x weights", t)
+
     launches = {name: dict(r["launches"]) for name, r in runs.items()}
     launches["sor_entry"] = sor_entry
     launches["replay"] = launches_replay
@@ -1455,6 +1658,7 @@ def main() -> int:
                                                           "plain_ms")}
                                 for name, r in runs.items()},
                     "replay": replay, "accumulator": accum, "int8": int8}))
+    log(json.dumps({"train": train}))
     log(json.dumps({"golden": gold}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))

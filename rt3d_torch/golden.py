@@ -356,3 +356,121 @@ def compare_to_golden(outs, golden: dict, extras=None, preset: str = "") -> dict
                        bool(golden.get("accumulate", False)), extras), golden)
     check_bands(m, preset)
     return m
+
+
+# ---------------------------------------------------------------------------
+# The training step's golden (`train_x`)
+# ---------------------------------------------------------------------------
+#
+# One training step of yolo11x-seg from the committed weights, the JAX
+# package's in float32 on the CPU (`tools/make_torch_golden.py --preset
+# train_x`): the loss and its parts, the global gradient norm, each
+# parameter leaf's gradient and parameter L2 norms, the whole gradient of
+# the head's last biases, and each leaf's L2 change after one update of
+# the trainer's optimizer (`synth_optimizer` at warm-up 0: the first
+# update has the full learning rate). The batch is both cameras of scene 1 (hard) of
+# `build_synth_dataset(**TRAIN_DATA)`, letterboxed in float32 and not
+# augmented; the golden holds its SHA-256 hashes, not the batch.
+
+TRAIN_GOLDEN = "train_x"
+TRAIN_WEIGHTS = os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz")
+TRAIN_DATA = dict(num_scenes=2, frames_per_scene=1, hw=(720, 1280), seed=0, domain="mix")
+TRAIN_SAMPLES = (2, 3)
+TRAIN_OPT = dict(lr=1e-3, warmup=0, steps=800)
+TRAIN_GRAD_LEAVES = tuple(f"23/{b}/{i}/2/bias" for b in ("cv2", "cv3", "cv4") for i in range(3))
+TRAIN_TARGETS = ("box", "box_w", "inst_id", "inst_cls", "inst_mask", "inst_box")
+# bands of the card's float32 step (TF32 off) against the golden: the loss
+# and parts relative; the global and each leaf's gradient norm, and each
+# leaf's update norm, relative; the head biases' gradients within
+# TRAIN_GRAD_ATOL of the leaf's largest |g|. A leaf with no gradient moves
+# by its weight decay alone, lr * wd = 1e-7 of each element, under half an
+# f32 ulp: p + u rounds to p or to a neighbour, differently in optax's
+# order and in torch's (which decays by an f32 1 - lr * wd first). So an
+# update norm may also differ by TRAIN_UPDATE_ULPS f32 ulps (2^-23) of the
+# leaf's parameter norm.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_GRAD_ATOL = 1e-3
+TRAIN_UPDATE_ULPS = 2
+
+
+def train_batch(ds: dict) -> dict:
+    """The golden's samples of a `build_synth_dataset(**TRAIN_DATA)`
+    result: the raw images and the targets."""
+    idx = list(TRAIN_SAMPLES)
+    return {k: np.ascontiguousarray(ds[k][idx]) for k in ("images",) + TRAIN_TARGETS}
+
+
+def batch_hashes(batch: dict) -> dict:
+    """SHA-256 of each array of `batch` (its dtype, shape and bytes)."""
+    import hashlib
+
+    out = {}
+    for k, v in batch.items():
+        h = hashlib.sha256(f"{v.dtype.str}{v.shape}".encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+        out[k] = h.hexdigest()
+    return out
+
+
+def train_record(loss: float, parts: dict, grads: dict, updates: dict, params: dict,
+                 hashes: dict) -> dict:
+    """The arrays of a `train_x` golden. `grads`, `updates` and `params`
+    (before the update) map the JAX package's flat parameter names to
+    numpy arrays; norms are taken in float64."""
+    names = sorted(grads)
+    norm = lambda a: float(np.sqrt(np.sum(np.square(np.asarray(a, np.float64)))))  # noqa: E731
+    rec = {"loss": np.float64(loss), "names": np.array(names),
+           "grad_norms": np.array([norm(grads[k]) for k in names]),
+           "update_norms": np.array([norm(updates[k]) for k in names]),
+           "param_norms": np.array([norm(params[k]) for k in names])}
+    rec["grad_global_norm"] = np.float64(np.sqrt(np.sum(rec["grad_norms"] ** 2)))
+    for k, v in parts.items():
+        rec[f"part_{k}"] = np.float64(v)
+    for k in TRAIN_GRAD_LEAVES:
+        rec[f"grad/{k}"] = np.asarray(grads[k], np.float32)
+    for k, v in hashes.items():
+        rec[f"hash_{k}"] = np.array(v)
+    return rec
+
+
+def measure_train(got: dict, ref: dict) -> dict:
+    """The largest differences of train record `got` from `ref`: relative
+    for the loss, parts and norms, relative to each leaf's largest |g| for
+    the head biases' gradients; the count of batch hashes that differ, and
+    of leaves whose update norm lies beyond its band (``update_norm_over``,
+    the band in the comment on TRAIN_UPDATE_ULPS). ``update_norm_rel`` is
+    taken over the leaves with a gradient. Where the golden's gradient is
+    0 (the mask-coefficient branches of levels 2 and 3 when every selected
+    positive anchor is on level 1), any gradient is a difference beyond
+    every band."""
+    rel = lambda a, b: float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))  # noqa: E731
+    if list(got["names"]) != list(ref["names"]):
+        raise AssertionError("train record: the parameter names differ from the golden's")
+    parts = [k for k in ref if k.startswith("part_")]
+    moving = ref["grad_norms"] > 0
+    return {
+        "hashes_differing": sum(str(got.get(k, "")) != str(ref[k])
+                                for k in ref if k.startswith("hash_")),
+        "loss_rel": max(rel(got[k], ref[k]) for k in ["loss"] + parts),
+        "grad_global_rel": rel(got["grad_global_norm"], ref["grad_global_norm"]),
+        "grad_norm_rel": rel(got["grad_norms"], ref["grad_norms"]),
+        "update_norm_rel": rel(got["update_norms"][moving], ref["update_norms"][moving]),
+        "update_norm_over": int(np.sum(
+            np.abs(got["update_norms"] - ref["update_norms"])
+            > TRAIN_NORM_RTOL * ref["update_norms"]
+            + TRAIN_UPDATE_ULPS * 2.0 ** -23 * ref["param_norms"])),
+        "grad_leaf_max": max(float(np.max(np.abs(got[f"grad/{k}"] - ref[f"grad/{k}"]))
+                                   / max(np.max(np.abs(ref[f"grad/{k}"])), 1e-30))
+                             for k in TRAIN_GRAD_LEAVES),
+    }
+
+
+def check_train_bands(m: dict) -> None:
+    band = {"loss_rel": TRAIN_LOSS_RTOL, "grad_global_rel": TRAIN_NORM_RTOL,
+            "grad_norm_rel": TRAIN_NORM_RTOL, "update_norm_over": 0,
+            "grad_leaf_max": TRAIN_GRAD_ATOL, "hashes_differing": 0}
+    faults = [f"{k} = {m[k]} > {v}" for k, v in band.items() if not m[k] <= v]
+    if faults:
+        raise AssertionError("the training step differs from the train_x golden: "
+                             + "; ".join(faults) + f" (measured {m})")

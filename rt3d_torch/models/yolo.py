@@ -11,9 +11,13 @@ class and mask-coefficient logits come out as (B, A, C) over anchors in
 row-major order per level, prototypes as (B, H/4, W/4, nm). Inside, tensors
 are NCHW in channels-last memory, the layout cuDNN runs fastest.
 
-Convolutions run in the model's parameter dtype (bf16 on the card via
-`cast_for_inference`, f32 in the CPU tests), with the bias added and the
-SiLU applied in that dtype after the convolution, as `core.conv2d` does.
+Convolutions run in the model's compute dtype: the parameters' dtype for
+inference (bf16 on the card via `cast_for_inference`, f32 in the CPU
+tests), or the dtype set by `YoloSeg.set_compute_dtype` for training (f32
+parameters, bf16 compute, as the JAX package trains). Each conv casts its
+weight and bias to the input's dtype (a no-op when they already are, a
+differentiable cast when training), then adds the bias and applies the
+SiLU in that dtype after the convolution, as `core.conv2d` does.
 Attention scores and their product with the values accumulate in f32.
 
 A conv that `rt3d_torch.models.quant` quantized is a `QConv` instead: int8
@@ -24,7 +28,7 @@ quantized branch of `core.conv2d`.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -61,8 +65,8 @@ class Conv(nn.Module):
         self.stride, self.pad, self.groups = s, k // 2, groups
 
     def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, None, self.stride, self.pad, 1, self.groups)
-        y = y + self.bias[:, None, None]
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.pad, 1, self.groups)
+        y = y + self.bias.to(y.dtype)[:, None, None]
         return silu(y) if act else y
 
 
@@ -282,7 +286,7 @@ class C2PSA(nn.Module):
 
 class ConvTranspose2x(nn.Module):
     """ConvTranspose2d(k=2, s=2) (`core.conv_transpose2x`): weight IOHW,
-    bias added after, in the parameter dtype."""
+    bias added after, both cast to the input's dtype."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -290,7 +294,8 @@ class ConvTranspose2x(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, None, stride=2) + self.bias[:, None, None]
+        y = F.conv_transpose2d(x, self.weight.to(x.dtype), None, stride=2)
+        return y + self.bias.to(y.dtype)[:, None, None]
 
 
 class Proto(nn.Module):
@@ -365,6 +370,7 @@ class YoloSeg(nn.Module):
         self.num_classes = num_classes
         self.num_mask_coeffs = num_mask_coeffs
         self.input_hw = tuple(input_hw)
+        self._compute_dtype = None
         depth, _, _ = SCALES[variant]
         w = self._w
 
@@ -406,8 +412,19 @@ class YoloSeg(nn.Module):
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        """The dtype of the float parameters (a `QConv` holds none)."""
+        """The dtype the convolutions run in: the one `set_compute_dtype`
+        gave, else the dtype of the float parameters (a `QConv` holds
+        none)."""
+        if self._compute_dtype is not None:
+            return self._compute_dtype
         return next(self.parameters()).dtype
+
+    def set_compute_dtype(self, dtype: torch.dtype | None) -> "YoloSeg":
+        """Run the convolutions in `dtype` whatever the parameters' dtype
+        (`core.set_compute_dtype`): training keeps f32 parameters and
+        computes in bf16. None goes back to the parameters' dtype."""
+        self._compute_dtype = dtype
+        return self
 
     def _layer(self, name: str) -> nn.Module:
         return getattr(self, name)
@@ -461,8 +478,15 @@ def state_dict_from_npz(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
 def flat_from_model(model: YoloSeg) -> Dict[str, np.ndarray]:
     """The float parameters of `model` in the JAX package's flat layout, as
     float32 numpy: the inverse of `state_dict_from_npz`."""
+    return flat_from_named(model.named_parameters())
+
+
+def flat_from_named(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """(parameter name, tensor) pairs of this module tree, such as the
+    parameters or their gradients, in the JAX package's flat layout, as
+    float32 numpy."""
     flat = {}
-    for name, t in model.named_parameters():
+    for name, t in named:
         path, leaf = name.rsplit(".", 1)
         a = t.detach().float().cpu().numpy()
         if leaf == "weight":

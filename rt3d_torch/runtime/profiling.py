@@ -19,7 +19,10 @@ def profile_op_times(fn: Callable[[], object], iters: int = 5
 
     Returns (device ms per iteration, summed over every kernel;
     {kernel name: device ms per iteration}). The device is synchronized
-    after the last call, inside the trace."""
+    after the last call, inside the trace. A `record_function` range on
+    the device timeline (a user annotation, such as
+    ``Optimizer.step#AdamW.step``) spans kernels and is none: it counts in
+    neither."""
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -31,7 +34,8 @@ def profile_op_times(fn: Callable[[], object], iters: int = 5
             fn()
         torch.cuda.synchronize()
     per_op = {e.key: e.self_device_time_total / 1e3 / iters
-              for e in prof.key_averages() if e.device_type.name == "CUDA"}
+              for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)}
     return sum(per_op.values()), per_op
 
 

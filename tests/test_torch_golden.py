@@ -11,6 +11,9 @@ apart; the 2cam_int8 golden's stored activation scales quantize the x
 weights; and the port itself, on the CPU in float32, meets the 1cam golden
 on frame 0 (one HD720 step of yolo11l, about 12 s). On the card
 `chip_smoke.py` holds every preset's float32 step against its golden.
+The `train_x` golden (one float32 training step of yolo11x) is checked
+for its contents, and its batch against the port's data; the card holds
+the port's step against it (`chip_smoke.py` phase 12).
 """
 
 import os
@@ -230,3 +233,64 @@ def test_int8_golden_decodes_with_its_scales():
     assert got == {p: v for p, v in scales.items() if not quant.default_exclude(p)}
     assert len(got) == 98
     assert PRESETS["2cam_int8"].quantize and int(g["frames"]) == FRAMES
+
+
+def _train_golden() -> dict:
+    with np.load(golden.golden_path(golden.TRAIN_GOLDEN)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_train_golden_file():
+    """The `train_x` golden (one float32 training step of the JAX package,
+    `tools/make_torch_golden.py --preset train_x`) exists and is small; its
+    loss and four parts are finite and positive; it has one gradient norm
+    and one update norm per parameter leaf of the x model, named as
+    `flat_from_model` names them, with the parameters' norms, all finite,
+    the gradients' positive but
+    on the mask branches that no selected anchor reaches;
+    the head's last biases' whole gradients; and it meets itself while a
+    1 % change of one leaf's gradient norm is refused."""
+    from rt3d_torch.models.yolo import YoloSeg, flat_from_model
+
+    assert os.path.getsize(golden.golden_path(golden.TRAIN_GOLDEN)) < 200_000
+    g = _train_golden()
+    parts = [g[f"part_{k}"] for k in ("cls", "box", "iou", "proto")]
+    assert all(np.isfinite(v) and v > 0 for v in [g["loss"]] + parts)
+    names = sorted(flat_from_model(YoloSeg(variant="x", input_hw=(384, 640))))
+    assert list(g["names"]) == names and len(names) == 372
+    assert g["grad_norms"].shape == g["update_norms"].shape == (len(names),)
+    assert (g["param_norms"] > 0).all() and g["param_norms"].shape == (len(names),)
+    assert np.isfinite(g["grad_norms"]).all() and np.isfinite(g["update_norms"]).all()
+    # the mask coefficients of levels 2 and 3 get none: every selected
+    # positive anchor (the top 32 by index among equal weights) is on level 1
+    zero = [str(n) for n, v in zip(names, g["grad_norms"]) if v == 0]
+    assert zero and all(n.startswith(("23/cv4/1/", "23/cv4/2/")) for n in zero)
+    assert (g["update_norms"] > 0).all() and np.isfinite(g["grad_global_norm"])
+    for k in golden.TRAIN_GRAD_LEAVES:
+        assert g[f"grad/{k}"].shape in ((64,), (80,), (32,))
+        assert (np.abs(g[f"grad/{k}"]).max() > 0) == (k not in zero)
+    m = golden.measure_train(g, g)
+    assert not any(m.values())
+    golden.check_train_bands(m)
+    moved = dict(g, grad_norms=g["grad_norms"].copy())
+    moved["grad_norms"][len(names) // 2] *= 1.01
+    with pytest.raises(AssertionError, match="grad_norm_rel"):
+        golden.check_train_bands(golden.measure_train(moved, g))
+
+
+def test_train_golden_batch_is_the_ports_data():
+    """The port's `build_synth_dataset(**TRAIN_DATA)` (two HD720 frames
+    rendered here) gives the golden's batch: every hash of its images and
+    targets equal."""
+    from types import SimpleNamespace
+
+    from rt3d_torch.train.data import build_synth_dataset
+
+    ds = build_synth_dataset(SimpleNamespace(input_hw=(384, 640), num_classes=80),
+                             **golden.TRAIN_DATA)
+    batch = golden.train_batch(ds)
+    g = _train_golden()
+    assert golden.batch_hashes(batch) == {k[len("hash_"):]: str(v) for k, v in g.items()
+                                          if k.startswith("hash_")}
+    assert sorted(batch) == sorted(("images",) + golden.TRAIN_TARGETS)
+    assert batch["images"].shape == (2, 720, 1280, 3) and batch["box_w"].sum() > 32

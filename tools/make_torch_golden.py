@@ -26,6 +26,15 @@ model calibrated live (in float32) on frames 0 to `CALIB_FRAMES` - 1 of the
 source through the pipeline's preprocessing, then `quant.quantize_params`
 on the float32 weights; its golden stores the activation scales used.
 
+`--preset train_x` records one training step instead
+(`rt3d_torch.golden.train_record`): `build_synth_dataset(**TRAIN_DATA)`
+with the JAX package's synthetic source, both cameras of its scene 1,
+letterboxed by the JAX `preprocess_frame` in float32; the x model with
+the committed weights in float32; `seg_detection_loss` and its gradient
+under `jax.jit`; then one update of `tools/train_synth.py`'s optimizer
+chain at `TRAIN_OPT` (warm-up 0). It takes about 50 s and 4.3 GB of
+memory on an 8-core CPU.
+
 The JAX step's subtraction (`min_sqdist_to_set`, its CPU form) makes an
 (N, 2048) matrix of all N workspace queries at once: 8 GiB at the 4-camera
 stretch preset's 1 048 576 queries. Here it is called on blocks of 65 536
@@ -57,7 +66,10 @@ from rt3d.pipeline.step import CameraCalib as JCalib  # noqa: E402
 from rt3d.pipeline.step import build_pipeline as jbuild_pipeline  # noqa: E402
 from rt3d.tracking import botsort as jbotsort  # noqa: E402
 from rt3d.tracking.bytetrack import bytetrack_init, bytetrack_step  # noqa: E402
-from rt3d_torch.golden import GOLDEN_DIR, encode_lattice, golden_path, record  # noqa: E402
+from rt3d_torch.golden import (  # noqa: E402
+    GOLDEN_DIR, TRAIN_DATA, TRAIN_GOLDEN, TRAIN_OPT, TRAIN_WEIGHTS, batch_hashes, encode_lattice,
+    golden_path, record, train_batch, train_record,
+)
 from rt3d_torch.pipeline.presets import (  # noqa: E402
     CALIB_FRAMES, PRESETS, preset_config, preset_source, preset_weights,
 )
@@ -152,14 +164,57 @@ def golden_outputs(name: str, frames: int) -> tuple:
     return cfg, outs, extras, scales
 
 
+def train_golden() -> dict:
+    """The `train_x` record: one float32 training step of the JAX package
+    (module docstring)."""
+    import optax
+
+    from rt3d.models.yolo.model import YoloSeg
+    from rt3d.models.yolo.postprocess import letterbox_params, preprocess_frame
+    from rt3d.train.data import build_synth_dataset
+    from rt3d.train.loss import seg_detection_loss
+
+    model = YoloSeg(variant="x", num_classes=80, input_hw=(384, 640))
+    batch = train_batch(build_synth_dataset(model, **TRAIN_DATA))
+    meta = letterbox_params(TRAIN_DATA["hw"], model.input_hw)
+    params = {k: jnp.asarray(v, jnp.float32) for k, v in load_params(TRAIN_WEIGHTS).items()}
+    lr, warmup, steps = TRAIN_OPT["lr"], TRAIN_OPT["warmup"], TRAIN_OPT["steps"]
+    chain = optax.chain(optax.zero_nans(), optax.clip_by_global_norm(5.0), optax.adamw(
+        optax.warmup_cosine_decay_schedule(0.0, lr, warmup_steps=warmup, decay_steps=steps,
+                                           end_value=lr * 0.05), b2=0.95, weight_decay=1e-4))
+    ycore.set_compute_dtype(jnp.float32)
+    try:
+        images = jax.vmap(lambda f: preprocess_frame(f, meta, jnp.float32))(
+            jnp.asarray(batch["images"]))
+        targets = {k: jnp.asarray(v) for k, v in batch.items() if k != "images"}
+        (loss, parts), grads = jax.jit(jax.value_and_grad(
+            lambda p: seg_detection_loss(model, p, images, targets), has_aux=True))(params)
+        updates, _ = jax.jit(chain.update)(grads, chain.init(params), params)
+    finally:
+        ycore.set_compute_dtype(jnp.bfloat16)
+    return train_record(float(loss), {k: float(v) for k, v in parts.items()},
+                        {k: np.asarray(v) for k, v in grads.items()},
+                        {k: np.asarray(v) for k, v in updates.items()},
+                        {k: np.asarray(v) for k, v in params.items()}, batch_hashes(batch))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--preset", nargs="+", choices=sorted(PRESETS), default=sorted(PRESETS))
+    ap.add_argument("--preset", nargs="+", choices=sorted(PRESETS) + [TRAIN_GOLDEN],
+                    default=sorted(PRESETS) + [TRAIN_GOLDEN])
     ap.add_argument("--frames", type=int, default=2)
     args = ap.parse_args()
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for name in args.preset:
         t = time.perf_counter()
+        if name == TRAIN_GOLDEN:
+            rec = train_golden()
+            np.savez_compressed(golden_path(name), **rec)
+            print(f"{name}: {golden_path(name)} {os.path.getsize(golden_path(name))} bytes, "
+                  f"loss {float(rec['loss']):.6f}, grad norm "
+                  f"{float(rec['grad_global_norm']):.6f}, {time.perf_counter() - t:.1f} s",
+                  flush=True)
+            continue
         cfg, outs, extras, scales = golden_outputs(name, args.frames)
         rec = record(outs, cfg.pipeline.subtraction_threshold, cfg.pipeline.workspace_accumulate,
                      extras)
