@@ -98,7 +98,28 @@ Phases, each printing its wall seconds:
      `evaluate_weights` on the committed x weights at the manifest's eval
      settings (10 hard frames, its seed, conf 0.25), held to the x bars of
      `tests/test_detection_loop.py` (copied here), the easy family beside
-     it.
+     it;
+  13. the multi-device paths: (a) a world-1 NCCL process group, started
+     in-process on an in-memory store (no port, no other process) and
+     destroyed on every way out; (b) `rt3d_torch.parallel.make_sharded_step`
+     over 6 HD720 frames of `2cam` (x model, committed weights) and (c)
+     over 2 frames of `stretch_4cam_1mm` (its replicated accumulator
+     carried), each frame's outputs and state bit for bit equal to the
+     preset's own `Pipeline.step` on the same frames, each kernel's
+     launches per step as that step's (K1-K4 on 2cam, K4 alone on the
+     stretch), the two steps' device ms per frame side by side (they take
+     turns going first); (d) `make_train_step(mesh=make_mesh({"dp": 1,
+     "fsdp": 1}))` (FSDP2) on phase 12a's `train_x` batch in float32 from
+     the committed weights: one step within the golden's bands, its loss,
+     update norms and largest parameter difference from phase 12a's step,
+     then its device ms beside the unsharded `make_train_step`'s; (e)
+     `python -m rt3d_torch.apps.track_only` called in-process on 6
+     synthetic HD720 frames of one camera with ``--live`` into a temporary
+     spool (its `status.json` and its frame checked), then `viewer --once`
+     on that spool, headless; no thread that the process group started,
+     native ones included (`/proc/self/task`: PyTorch's NCCL watchdog and
+     heartbeat monitor, NCCL's own; NCCL's RAS service is off), outlives
+     its destruction, and no Python thread is left behind.
 
 Fails (non-zero exit, no result line) when no CUDA device is present, when
 the port is missing beside this file, or when any check fails. The last
@@ -961,7 +982,10 @@ def train_golden_step(torch, np):
         f"{float(rec['grad_global_norm']):.6f} (golden {float(ref['grad_global_norm']):.6f}); "
         f"differences {json.dumps(m)}")
     golden.check_train_bands(m)
-    return dict(m, loss=float(rec["loss"]), golden_loss=float(ref["loss"]), render_s=render_s)
+    reuse = {"images": images, "targets": targets, "hashes": golden.batch_hashes(batch),
+             "after": {k: p.detach().clone() for k, p in params.items()}}
+    return dict(m, loss=float(rec["loss"]), golden_loss=float(ref["loss"]),
+                render_s=render_s), reuse
 
 
 TRAIN_WARMUP_STEPS = 3  # steps left out of the steady step times
@@ -1077,6 +1101,284 @@ def check_eval(torch):
         check(got >= b[key], f"eval: {key} {got:.4f} under the x bar {b[key]}")
     return {"hard": {k: hard[k] for k in keep}, "hard_precision_at_08":
             hard["by_conf"]["0.8"]["precision"], "easy": {k: easy[k] for k in keep}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the camera-sharded step, the mesh train step, track_only, viewer
+# ---------------------------------------------------------------------------
+
+SHARDED_FRAMES = {"2cam": 6, "stretch_4cam_1mm": 2}
+
+
+def same_state(torch, a, b):
+    """True when two `PipelineState`s hold equal tensors everywhere."""
+    return (len(a.trackers) == len(b.trackers)
+            and all(same_outputs(torch, x, y) for x, y in zip(a.trackers, b.trackers))
+            and torch.equal(a.prev_gray, b.prev_gray) and same_outputs(torch, a.accum, b.accum))
+
+
+def check_sharded(torch, name, per_step):
+    """(b), (c): `make_sharded_step` on the world-1 process group against
+    the preset's own `Pipeline.step` on the same frames: outputs and state
+    bit for bit after every frame, each kernel's launches per step as the
+    preset's, and the device ms of each frame (CUDA events; the two steps
+    take turns going first)."""
+    from rt3d_torch import kernels
+    from rt3d_torch.parallel import make_sharded_step
+    from rt3d_torch.pipeline.presets import synthetic_preset
+
+    n_frames = SHARDED_FRAMES[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, src = synthetic_preset(name, n_frames)
+    sharded = make_sharded_step(pipe)
+    check((sharded.lo, sharded.hi) == (0, pipe.cfg.rig.num_cameras),
+          f"{name}: rank 0 of 1 holds cameras [{sharded.lo}, {sharded.hi})")
+    runs = {"step": (pipe.step, pipe.init_state(), pipe.calib()),
+            "sharded": (sharded, sharded.init_state(), sharded.calib())}
+    ms = {k: [] for k in runs}
+    launches = {k: dict.fromkeys(per_step, 0) for k in runs}
+    for i in range(n_frames):
+        pkt = src.get(i)
+        rgb, depth = torch.from_numpy(pkt.rgb).cuda(), torch.from_numpy(pkt.depth).cuda()
+        outs = {}
+        for which in (("step", "sharded") if i % 2 == 0 else ("sharded", "step")):
+            fn, state, calib = runs[which]
+            before = dict(kernels.LAUNCHES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            state, outs[which] = fn(state, rgb, depth, calib)
+            b.record()
+            torch.cuda.synchronize()
+            ms[which].append(a.elapsed_time(b))
+            runs[which] = (fn, state, calib)
+            for k, n in per_step.items():
+                rose = kernels.LAUNCHES[k] - before[k]
+                check(rose == n, f"{name} {which} frame {i}: {k} launched {rose} times, "
+                      f"expected {n}")
+                launches[which][k] += rose
+        check(same_outputs(torch, outs["sharded"], outs["step"]),
+              f"{name} frame {i}: the sharded step's outputs differ from Pipeline.step's")
+        check(same_state(torch, runs["sharded"][1], runs["step"][1]),
+              f"{name} frame {i}: the sharded step's state differs from Pipeline.step's")
+        log(f"  {name} frame {i}: Pipeline.step {ms['step'][-1]:.2f} ms, sharded "
+            f"{ms['sharded'][-1]:.2f} ms device clock; equal outputs and state "
+            f"({int(outs['step'].detections.valid.sum())} detections, "
+            f"{int(outs['step'].workspace.valid.sum())} workspace points)")
+    check(sum(int(o.detections.valid.sum()) for o in outs.values()) > 0,
+          f"{name}: no detection on the last frame")
+    steady = slice(WARMUP_FRAMES, None) if n_frames > WARMUP_FRAMES else slice(1, None)
+    res = {"frames": n_frames, "launches": launches["sharded"], "launches_per_step": {
+        k: v // n_frames for k, v in launches["sharded"].items()}}
+    for k, v in ms.items():
+        res[f"{k}_ms"] = statistics.median(v[steady])
+    log(f"  {name}: steady device ms (median of frames {steady.start}-{n_frames - 1}): "
+        f"Pipeline.step {res['step_ms']:.2f}, sharded {res['sharded_ms']:.2f}")
+    return res
+
+
+def mesh_train_step(torch, np, reuse):
+    """(d) `make_train_step(mesh=make_mesh({"dp": 1, "fsdp": 1}))` on the
+    `train_x` golden's batch (f32, TF32 off), from the committed weights:
+    one step within the golden's bands, its largest parameter difference
+    from phase 12a's step, then its device ms beside the unsharded
+    `make_train_step`'s on the same batch (two more steps each, in turns)."""
+    from dataclasses import fields
+
+    from rt3d_torch import golden
+    from rt3d_torch.models.yolo import YoloSeg, flat_from_named, load_weights
+    from rt3d_torch.parallel import make_mesh
+    from rt3d_torch.train.step import AdamW, TrainState, make_train_step, synth_optimizer
+
+    seen = {}
+
+    class Recording(AdamW):
+        """The trainer's optimizer, keeping the whole gradient it was given."""
+
+        def step(self, opt, params, grads, state, **kw):
+            seen["grads"] = {k: g.detach().full_tensor().clone() if hasattr(g, "full_tensor")
+                             else g.detach().clone() for k, g in zip(params, grads)}
+            super().step(opt, params, grads, state, **kw)
+
+    opt = synth_optimizer(**golden.TRAIN_OPT)
+    rec_opt = Recording(**{f.name: getattr(opt, f.name) for f in fields(opt)})
+    full = {k: p.detach().cuda() for k, p in load_weights(
+        YoloSeg(variant="x", num_classes=80, input_hw=(384, 640)),
+        golden.TRAIN_WEIGHTS).named_parameters()}
+    batch = {"images": reuse["images"], **reuse["targets"]}
+    res = {}
+    steps = {}
+    for name, mesh in (("mesh", make_mesh({"dp": 1, "fsdp": 1})), ("unsharded", None)):
+        model = YoloSeg(variant="x", num_classes=80, input_hw=(384, 640)).cuda()
+        model.set_compute_dtype(torch.float32)
+        init_fn, step_fn = make_train_step(model, rec_opt if mesh else opt, mesh=mesh)
+        st = init_fn(0)
+        st = TrainState(params=full, opt_state=st.opt_state, step=st.step)
+        st, metrics = step_fn(st, batch)
+        steps[name] = [step_fn, st]
+        if mesh is None:
+            continue
+        check(all(len(p.placements) == 2 for p in st.params.values()),
+              "the mesh step's parameters are not sharded over the 2-D mesh")
+        after = {k: p.detach().full_tensor() for k, p in st.params.items()}
+        grads = seen.pop("grads")
+        rec = golden.train_record(
+            float(metrics["loss"]), {k: float(v) for k, v in metrics.items() if k != "loss"},
+            flat_from_named(grads.items()),
+            flat_from_named((k, after[k] - full[k]) for k in full),
+            flat_from_named(full.items()), reuse["hashes"])
+        with np.load(golden.golden_path(golden.TRAIN_GOLDEN)) as z:
+            ref = {k: z[k] for k in z.files}
+        m = golden.measure_train(rec, ref)
+        golden.check_train_bands(m)
+        diff = max(float((after[k] - reuse["after"][k]).abs().max()) for k in after)
+        upd = rec["update_norms"]
+        res.update(m, loss=float(rec["loss"]), golden_loss=float(ref["loss"]),
+                   max_param_diff_from_12a=diff, update_norm_max=float(upd.max()),
+                   update_norm_median=float(np.median(upd)))
+        log(f"  mesh step (dp 1 x fsdp 1): loss {res['loss']:.6f} (golden "
+            f"{res['golden_loss']:.6f}), update norms median {res['update_norm_median']:.3e} "
+            f"max {res['update_norm_max']:.3e}, largest parameter difference from phase "
+            f"12a's step {diff:.3e}; differences from the golden {json.dumps(m)}")
+        del after, grads
+    ms = {k: [] for k in steps}
+    for name in ("unsharded", "mesh", "mesh", "unsharded"):
+        step_fn, st = steps[name]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        steps[name][1], _ = step_fn(st, batch)
+        b.record()
+        torch.cuda.synchronize()
+        ms[name].append(a.elapsed_time(b))
+    for k, v in ms.items():
+        res[f"{k}_step_ms"] = statistics.mean(v)
+    log(f"  train step device ms (batch 2, f32, mean of 2): unsharded "
+        f"{res['unsharded_step_ms']:.2f}, mesh {res['mesh_step_ms']:.2f}")
+    return res
+
+
+def run_track_only(torch, tmp):
+    """(e) `python -m rt3d_torch.apps.track_only` in-process on 6 synthetic
+    HD720 frames of one camera (x model) with ``--live`` into a spool, then
+    `viewer --once` on that spool, headless."""
+    import contextlib
+    import io
+
+    from rt3d_torch.apps import track_only, viewer
+
+    spool = os.path.join(tmp, "spool")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = track_only.main([
+            "--source", "synthetic", "--frames", "6", "--variant", "x", "--weights",
+            os.path.join(ROOT, "weights", "yolo11x_synth_seg.npz"), "--device", "cuda",
+            "--live", spool, "--log-dir", os.path.join(tmp, "runs")])
+    text = out.getvalue().splitlines()
+    for line in text:
+        log(f"  track_only: {line}")
+    check(rc == 0, f"track_only exited {rc}")
+    boxes = [ln for ln in text if " id=" in ln]
+    check(len(boxes) > 0 and any("FPS" in ln for ln in text),
+          "track_only printed no detection or no FPS line")
+    with open(os.path.join(spool, "status.json")) as f:
+        status = json.load(f)
+    frame = [n for n in ("frame.png", "frame.npy") if os.path.exists(os.path.join(spool, n))]
+    check(status["frame"] == 5 and len(frame) == 1,
+          f"spool: status {status}, frames {frame}")
+    if frame == ["frame.npy"]:
+        panel = np.load(os.path.join(spool, "frame.npy"))
+        check(panel.shape == (720, 1280, 3) and panel.dtype == np.uint8,
+              f"spool frame.npy is {panel.shape} {panel.dtype}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        vrc = viewer.main([spool, "--once"])
+    log(f"  viewer --once: exit {vrc}: {out.getvalue().strip()}")
+    check(vrc == 0 and "frame 5" in out.getvalue(), "viewer --once did not show frame 5")
+    return {"detection_lines": len(boxes), "status": status, "frame_file": frame[0],
+            "viewer_rc": vrc}
+
+
+def os_threads():
+    """Id -> name of each of this process's threads, the native ones
+    (NCCL's watchdog, heartbeat and proxy threads) as well as Python's."""
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                out[tid] = f.read().strip()
+        except OSError:     # the thread ended while we listed
+            pass
+    return out
+
+
+def check_parallel(torch, np, train_reuse, none):
+    """Phase 13 on a world-1 NCCL process group (an in-process store, no
+    port, no other process), destroyed on every way out: no thread that
+    the group started, native ones included, outlives it (a few seconds
+    are allowed for them to end), and no Python thread is left behind."""
+    import shutil
+    import threading
+
+    import torch.distributed as dist
+
+    threads = threading.active_count()
+    tasks = os_threads()
+    res = {}
+    # NCCL names its threads; its RAS service, which listens on a TCP port
+    # for the `ncclras` client and keeps its thread for the life of the
+    # process, stays off: this script opens no socket
+    os.environ["NCCL_SET_THREAD_NAME"] = "1"
+    os.environ["NCCL_RAS_ENABLE"] = "0"
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        started = sorted(v for k, v in os_threads().items() if k not in tasks)
+        check("pt_nccl_watchdg" in started,
+              f"no NCCL watchdog among the group's new threads {started}")
+        log(f"  the process group started the threads {started}")
+        t = time.perf_counter()
+        res["sharded_2cam"] = check_sharded(torch, "2cam", {
+            **none, "window_dedupe": 2, "window_prev_or": 2, "sor_knn_slots": 1,
+            "min_sqdist": 1})
+        phase("sharded 2cam", t)
+        t = time.perf_counter()
+        res["sharded_stretch_4cam_1mm"] = check_sharded(
+            torch, "stretch_4cam_1mm", {**none, "min_sqdist": 1})
+        phase("sharded stretch_4cam_1mm", t)
+        t = time.perf_counter()
+        res["mesh_train_step"] = mesh_train_step(torch, np, train_reuse)
+        phase("mesh train step", t)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    during = len(os_threads())
+    deadline = time.monotonic() + 10.0
+    while True:
+        now = os_threads()
+        left = {k: v for k, v in now.items() if k not in tasks}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(not left, f"threads left behind by the process group: {sorted(left.values())}")
+    res["os_threads"] = {"before": len(tasks), "started": started, "after_destroy": during,
+                         "after": len(now)}
+    log(f"  os threads: {len(tasks)} before the process group, {during} just after "
+        f"its destruction, {len(now)} when its threads had ended")
+    t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rt3d_live_")
+    try:
+        res["track_only"] = run_track_only(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("track_only and viewer", t)
+    check(threading.active_count() == threads,
+          f"{threading.active_count() - threads} threads left behind by phase 13")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1628,7 +1930,8 @@ def main() -> int:
 
     # 12. the training path: the golden step, the trainer, the evaluation
     t = time.perf_counter()
-    train = {"golden_step": train_golden_step(torch, np)}
+    train = {}
+    train["golden_step"], train_reuse = train_golden_step(torch, np)
     phase("train_x golden step", t)
     t = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="rt3d_train_") as tmp:
@@ -1638,9 +1941,16 @@ def main() -> int:
     train["eval"] = check_eval(torch)
     phase("eval of the x weights", t)
 
+    # 13. the sharded step and the mesh train step on a world-1 process
+    # group; track_only --live and viewer --once
+    parallel = check_parallel(torch, np, train_reuse, none)
+    del train_reuse
+
     launches = {name: dict(r["launches"]) for name, r in runs.items()}
     launches["sor_entry"] = sor_entry
     launches["replay"] = launches_replay
+    for name in ("2cam", "stretch_4cam_1mm"):
+        launches[f"sharded_{name}"] = dict(parallel[f"sharded_{name}"]["launches"])
     step_rows["2cam"]["sor_knn_slots"] = slot_row
     out_rows = []
     for r in rows:
@@ -1659,6 +1969,7 @@ def main() -> int:
                                 for name, r in runs.items()},
                     "replay": replay, "accumulator": accum, "int8": int8}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"parallel": parallel}))
     log(json.dumps({"golden": gold}))
     log(f"[total] {time.perf_counter() - T0:.2f} s")
     log(json.dumps({"kernels": out_rows}))

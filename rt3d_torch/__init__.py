@@ -9,6 +9,10 @@ source at first use on a CUDA tensor. Users reach it through the CLIs of
 `rt3d_torch.apps` (`record` a sequence, then `two_cam` / `one_cam` on it),
 which replay `.rts` recordings (`rt3d_torch.io.ReplaySource`, over the C++
 replayer of `native/replayer.cpp`) through `rt3d_torch.runtime`'s
-`PipelineDriver` and write the reference's CSV logs. Entry points default
+`PipelineDriver` and write the reference's CSV logs; `track_only`,
+`viewer` (over the live spool of `rt3d_torch.viz.live`) and `plots` are
+the other apps. `rt3d_torch.train` trains the detector, and
+`rt3d_torch.parallel` shards the step's cameras and the train step's
+parameters over a `torch.distributed` process group. Entry points default
 to ``device="cuda"``; CPU tensors take each kernel's plain PyTorch version.
 """

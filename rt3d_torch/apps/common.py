@@ -1,11 +1,12 @@
 """Shared CLI plumbing for the port's app entry points (port of
 `rt3d/apps/common.py`).
 
-The flags are the JAX apps', plus ``--device`` (default ``cuda``). Flags
-whose paths the port does not have yet refuse with `NotImplementedError`
-naming their ROADMAP item, rather than being ignored: ``--live`` and
-``--save-frames`` (item 15). A CUDA device without a card is refused too.
-``--quantize`` runs the backbone int8 (`maybe_quantize`).
+The flags are the JAX apps', plus ``--device`` (default ``cuda``). A CUDA
+device without a card is refused. ``--quantize`` runs the backbone int8
+(`maybe_quantize`); ``--live`` publishes into a spool that
+`rt3d_torch.apps.viewer` tails (`rt3d_torch.viz.live`); ``--save-frames``
+writes annotated frames with cv2, which it imports where it writes, as the
+JAX apps do (so without cv2 it fails there).
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--save-ply", action="store_true",
                    help="dump workspace/object clouds as PLY every 30 frames")
     p.add_argument("--save-frames", action="store_true",
-                   help="write annotated frames as PNGs (not ported: ROADMAP item 15)")
+                   help="write annotated frames as PNGs")
     p.add_argument("--live", default=None, metavar="SPOOL_DIR",
-                   help="publish latest outputs for a viewer (not ported: ROADMAP item 15)")
+                   help="publish latest outputs for `rt3d_torch.apps.viewer`")
     p.add_argument("--accumulate", action="store_true",
                    help="persistent workspace accumulation: publish the voxels whose "
                         "decayed weight clears accum_min_weight")
@@ -61,21 +62,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                         "weights' act-scales sidecar matches them")
 
 
-# flag -> the ROADMAP item that ports its path
-_UNPORTED = (
-    ("live", "--live (the live spool and its viewer) is ROADMAP item 15"),
-    ("save_frames", "--save-frames (annotated frames, viz.draw and cv2) is ROADMAP item 15"),
-)
-
-
 def check_args(args) -> None:
-    """Refuse what the port cannot run: `NotImplementedError` for the first
-    set flag whose path is not ported, naming its ROADMAP item; and
-    `RuntimeError` for a CUDA device when none is available (the apps never
-    fall back to the CPU)."""
-    for name, why in _UNPORTED:
-        if getattr(args, name, None):
-            raise NotImplementedError(why)
+    """Refuse a CUDA device when none is available (`RuntimeError`): the
+    apps never fall back to the CPU."""
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available")
 

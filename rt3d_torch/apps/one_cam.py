@@ -2,7 +2,9 @@
 `1cam/rt-tracking.py` analog: one stream, per-object clouds in the robot
 frame, a periodic scene export (PLY every 30 frames, like the reference's
 Open3D refresh at `1cam/rt-tracking.py:267-285`) of a random subsample
-drawn from a seeded generator.
+drawn from a seeded generator, and a live spool for the viewer (every 30
+frames, its workspace subsampled alike). As in the JAX app,
+``--save-frames`` writes nothing here.
 
     python -m rt3d_torch.apps.one_cam --source seq.rts --save-ply --device cuda
 """
@@ -32,6 +34,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from rt3d_torch.pipeline.step import build_pipeline
     from rt3d_torch.runtime.driver import PipelineDriver
     from rt3d_torch.viz.cloud import save_ply
+    from rt3d_torch.viz.live import LiveSpool
 
     cfg = load_config(args, num_cameras=1)
     cam = cfg.rig.cameras[0].intrinsics
@@ -48,9 +51,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             fps_log_path=os.path.join(args.log_dir, "fps_log.csv"),
             timings_path=os.path.join(args.log_dir, "timings.csv"))
         rng = np.random.default_rng(0)
+        # every-30 + 5% subsample mirror the reference's scene refresh
+        # cadence (`1cam/rt-tracking.py:189,267-285`)
+        spool = (LiveSpool(args.live, every=30, subsample=args.subsample)
+                 if args.live else None)
 
         def on_frame(i, out):
-            if i % 30:
+            if spool is not None:
+                spool.publish(i, out, rgb_fn=lambda: src.get(i).rgb)
+            if i % 30 or not args.save_ply:
                 return
             objs = out.per_camera_objects
             val = objs.valid[0] & objs.present[0][:, None]
@@ -61,7 +70,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 save_ply(os.path.join(args.log_dir, f"objects_{i:05d}.ply"), sub)
 
         res = driver.run(src, num_frames=args.frames, warmup=args.warmup,
-                         on_frame=on_frame if args.save_ply else None)
+                         on_frame=on_frame if args.save_ply or spool is not None else None)
     finally:
         src.close()
     print(f"frames={res.frames} mean_fps={res.mean_fps:.2f} "

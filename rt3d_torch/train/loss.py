@@ -18,7 +18,7 @@ logit the two make the BCE's slope ``0.5 - t - 0.5``, as in JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +26,10 @@ import torch.nn.functional as F
 from rt3d_torch.models.yolo import REG_MAX
 
 PROTO_STRIDE = 4
+
+
+def _same(count: torch.Tensor) -> torch.Tensor:
+    return count
 
 
 def _maximum(x: torch.Tensor, v: float) -> torch.Tensor:
@@ -53,8 +57,17 @@ def seg_detection_loss(
     images: torch.Tensor,        # (B, H, W, 3)
     targets: Dict[str, torch.Tensor],
     num_mask_anchors: int = 32,
+    total: Callable[[torch.Tensor], torch.Tensor] = _same,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The loss of `model` on `images` and its parts. `targets`:
+    """The loss of `model` on `images` and its parts.
+
+    Every part is a sum over the batch divided by a count over the batch
+    (positives, assignment weights, pixels). `total`, when given, maps a
+    count of this batch to the count over the global batch that this one
+    is a slice of (a sum over the data-parallel ranks): then each part is
+    this slice's share of the global batch's, and the shares of all the
+    slices sum to the loss of the global batch, gradients included. The
+    counts carry no gradient. `targets`:
 
     box:    (B, A, 4)   ltrb distances in stride units, clipped to REG_MAX-1
     box_w:  (B, A)      anchor assignment weights (0 = background)
@@ -84,7 +97,7 @@ def seg_detection_loss(
         if "inst_mask" in targets:
             pred_iou = _pred_box_iou(box_logits, targets)
             cls_t = cls_t * _alignment_quality(pred_iou.detach(), targets)[..., None]
-    num_pos = _maximum(cls_t.sum(), 1.0)
+    num_pos = _maximum(total(cls_t.sum()), 1.0)
     bce = _bce(cls_logits, cls_t).sum() / num_pos
 
     # box: cross-entropy of the DFL distribution against the two bins
@@ -96,16 +109,18 @@ def seg_detection_loss(
     ce = -(torch.gather(logp, -1, lo[..., None])[..., 0] * (1 - w_hi)
            + torch.gather(logp, -1, (lo + 1)[..., None])[..., 0] * w_hi)
     w = targets["box_w"]
-    box_loss = (ce.mean(dim=-1) * w).sum() / _maximum(w.sum(), 1.0)
+    w_sum = _maximum(total(w.sum()), 1.0)
+    box_loss = (ce.mean(dim=-1) * w).sum() / w_sum
 
     if "inst_mask" in targets:
-        proto_loss = _instance_mask_loss(coeffs, protos, targets, num_mask_anchors)
+        proto_loss = _instance_mask_loss(coeffs, protos, targets, num_mask_anchors, total)
         pred_iou = _pred_box_iou(box_logits, targets)
-        iou_loss = ((1.0 - pred_iou) * w).sum() / _maximum(w.sum(), 1.0)
+        iou_loss = ((1.0 - pred_iou) * w).sum() / w_sum
         loss = bce + box_loss + 2.5 * iou_loss + 0.5 * proto_loss
         return loss, {"cls": bce, "box": box_loss, "iou": iou_loss, "proto": proto_loss}
     # legacy: BCE of the first prototype channel against a foreground map
-    proto_loss = _bce(protos[..., 0], targets["mask"]).mean()
+    px = _bce(protos[..., 0], targets["mask"])
+    proto_loss = px.sum() / total(px.new_tensor(px.numel()))
     loss = bce + box_loss + 0.5 * proto_loss
     return loss, {"cls": bce, "box": box_loss, "proto": proto_loss}
 
@@ -160,6 +175,7 @@ def _instance_mask_loss(
     protos: torch.Tensor,   # (B, hp, wp, nm)
     targets: Dict[str, torch.Tensor],
     k: int,
+    total: Callable[[torch.Tensor], torch.Tensor] = _same,
 ) -> torch.Tensor:
     """Per-anchor assembled-mask BCE, box-cropped and area-normalized, over
     a static top-k of the positive anchors of each image (anchors beyond
@@ -182,4 +198,4 @@ def _instance_mask_loss(
     px = _bce(logits, gt) * inbox                                # (B, k, hp, wp)
     area = _maximum((x2 - x1) * (y2 - y1), 1.0)[..., 0, 0]       # (B, k)
     per_anchor = px.sum(dim=(-1, -2)) / area
-    return (per_anchor * wk).sum() / _maximum(wk.sum(), 1.0)
+    return (per_anchor * wk).sum() / _maximum(total(wk.sum()), 1.0)

@@ -21,15 +21,28 @@ arithmetic:
 * `optax.adamw` with `lr` a number or a schedule of the update count
   (starting at 0, so a warm-up from 0 makes the first update move
   nothing); it decays every parameter, biases included, by ``lr * wd``.
+
+With a dp x fsdp mesh (`rt3d_torch.parallel.make_mesh`), `make_train_step`
+shards the parameters and the optimizer's moments over ``fsdp`` by the JAX
+package's rule (`rt3d_torch.parallel.fsdp_placements`) through FSDP2
+(``fully_shard`` on the mesh: replicated over ``dp``, sharded over
+``fsdp``), and the global batch over every rank. Each step computes what
+the single-device step computes on the global batch, as JAX's `jit` over
+a dp-sharded batch does: the loss's counts are summed over the ranks
+before they divide (`seg_detection_loss`'s ``total``), the gradients are
+summed, not averaged, over the ranks, the clip reads the norm of the whole
+gradient, and the metrics are the global batch's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from rt3d_torch.models.yolo import YoloSeg, init_random
 from rt3d_torch.train.loss import seg_detection_loss
@@ -84,23 +97,27 @@ class AdamW:
                 "nu": {k: torch.zeros_like(p, memory_format=torch.preserve_format)
                        for k, p in params.items()}}
 
-    def _transform(self, grads):
+    def _transform(self, grads, norms):
         """Zero the NaNs, then clip by the global norm, in place."""
         if self.zero_nans:
             for g in grads:
                 g.masked_fill_(torch.isnan(g), 0.0)
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = torch.linalg.vector_norm(torch.stack(norms(grads)))
             keep = norm < self.clip_norm
             one = torch.ones_like(norm)
             torch._foreach_div_(grads, torch.where(keep, one, norm))
             torch._foreach_mul_(grads, torch.where(keep, one, one * self.clip_norm))
 
     def step(self, opt: torch.optim.AdamW, params: Dict[str, torch.Tensor],
-             grads, state: dict) -> None:
+             grads, state: dict,
+             norms: Callable[[List[torch.Tensor]], List[torch.Tensor]] = torch._foreach_norm
+             ) -> None:
         """One update of `params` and of `state` (in place) by `grads`,
-        through `opt`, a `torch.optim.AdamW` over `params`."""
-        self._transform(grads)
+        through `opt`, a `torch.optim.AdamW` over `params`. Sharded
+        gradients (`DTensor`) are transformed on their local shards, and
+        `norms` gives the whole leaves' norms from those."""
+        self._transform([g.to_local() if isinstance(g, DTensor) else g for g in grads], norms)
         count = int(state["count"])
         for (k, p), g in zip(params.items(), grads):
             p.grad = g
@@ -148,13 +165,18 @@ def make_train_step(model: YoloSeg, optimizer: Optional[AdamW] = None, mesh=None
     `init_fn` draws the model's parameters from `seed` (`init_random`;
     load weights after it to start from them) and zeroes the optimizer.
 
-    The dp x fsdp mesh of the JAX package (`mesh`) needs several devices;
-    one H100 has none, so a mesh raises (ROADMAP item 15)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: the dp x fsdp mesh is not ported (ROADMAP item 15); "
-            "one device trains without a mesh")
+    With `mesh`, a `DeviceMesh` with axes ``("dp", "fsdp")`` over the
+    whole process group, the model is sharded in place (the module
+    docstring says how), every rank calls `init_fn` and `step_fn` alike,
+    and `step_fn` takes the global batch on every rank and steps on its
+    rank's slice (``B / world`` samples, in rank order). Its state holds
+    the sharded parameters and moments (`DTensor`); a state whose
+    parameters or moments are plain tensors of the full shapes (weights
+    loaded on the host, say) is copied into the shards by the next
+    `step_fn`."""
     optimizer = optimizer or AdamW(1e-4)
+    if mesh is not None:
+        return _mesh_train_step(model, optimizer, mesh)
     params = dict(model.named_parameters())
     live = {"opt": None}
     engine = optimizer.make(params)
@@ -165,23 +187,10 @@ def make_train_step(model: YoloSeg, optimizer: Optional[AdamW] = None, mesh=None
         return TrainState(params=params, opt_state=live["opt"],
                           step=torch.zeros((), dtype=torch.int64))
 
-    def adopt(state: TrainState) -> None:
-        """Copy a state whose tensors are not the live ones into them."""
-        with torch.no_grad():
-            for k, p in params.items():
-                if state.params[k] is not p:
-                    p.copy_(state.params[k])
-            opt = live["opt"]
-            if state.opt_state is not opt:
-                opt["count"].copy_(state.opt_state["count"])
-                for part in ("mu", "nu"):
-                    for k, t in opt[part].items():
-                        t.copy_(state.opt_state[part][k])
-
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
         if live["opt"] is None:
             raise RuntimeError("make_train_step: call init_fn before step_fn")
-        adopt(state)
+        _adopt(state, params, live["opt"])
         loss, parts = seg_detection_loss(model, batch["images"], batch)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
             torch.autograd.grad(loss, list(params.values()), allow_unused=True),
@@ -193,3 +202,106 @@ def make_train_step(model: YoloSeg, optimizer: Optional[AdamW] = None, mesh=None
 
     return init_fn, step_fn
 
+
+def _adopt(state: TrainState, params: Dict[str, torch.Tensor], opt: dict) -> None:
+    """Copy a state whose tensors are not the live ones (`params`, the
+    optimizer state `opt`) into them."""
+    with torch.no_grad():
+        for k, p in params.items():
+            if state.params[k] is not p:
+                _copy_into(p, state.params[k])
+        if state.opt_state is not opt:
+            opt["count"].copy_(state.opt_state["count"])
+            for part in ("mu", "nu"):
+                for k, t in opt[part].items():
+                    _copy_into(t, state.opt_state[part][k])
+
+
+def _shard_of(full: torch.Tensor, like: DTensor) -> torch.Tensor:
+    """This rank's part of `full` in the layout of the sharded `like`."""
+    from rt3d_torch.parallel.mesh import local_part
+
+    local = like.to_local()
+    full = local_part(full, like.device_mesh, like.placements)
+    if full.shape != local.shape:
+        raise ValueError(f"shard of {tuple(full.shape)} != local {tuple(local.shape)}")
+    return full.to(local.device, local.dtype)
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy `src` into `dst`; into a sharded `dst`, a whole `src` copies
+    its shard."""
+    if isinstance(dst, DTensor) and not isinstance(src, DTensor):
+        dst.to_local().copy_(_shard_of(src, dst))
+    else:
+        dst.copy_(src)
+
+
+def _mesh_train_step(model: YoloSeg, optimizer: AdamW, mesh):
+    """`make_train_step` on a dp x fsdp mesh: FSDP2 over the whole model."""
+    from torch.distributed.fsdp import fully_shard
+
+    from rt3d_torch.parallel.mesh import batch_sharding, fsdp_placements, local_part
+
+    if tuple(mesh.mesh_dim_names or ()) != ("dp", "fsdp"):
+        raise ValueError(f"the train mesh's axes must be ('dp', 'fsdp'), "
+                         f"not {mesh.mesh_dim_names}")
+    fsdp_group = mesh.get_group("fsdp")
+    world = mesh.size()
+    # the batch is split over every rank, dp-major (JAX's P("dp") splits
+    # it over dp only; the gradient is the same)
+    batch_layout = batch_sharding(mesh, ("dp", "fsdp"))
+    placements = fsdp_placements(model, mesh.size(1))
+    by_param = {id(p): placements[name] for name, p in model.named_parameters()}
+    # FSDP2 cannot replicate a parameter: the rule's replicated ones take
+    # its default, dim 0 split with padding
+    fully_shard(model, mesh=mesh, shard_placement_fn=lambda p: (
+        by_param[id(p)] if isinstance(by_param[id(p)], Shard) else None))
+    # the loss is already each slice's share of the global batch's: sum the
+    # gradients (plain sums, which every backend has), divide by nothing
+    model.set_gradient_divide_factor(1.0)
+    model.set_force_sum_reduction_for_comms(True)
+    params = dict(model.named_parameters())
+    live = {"opt": None}
+    engine = optimizer.make(params)
+
+    def total(x: torch.Tensor) -> torch.Tensor:
+        x = x.detach().clone()
+        dist.all_reduce(x)
+        return x
+
+    def norms(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The leaves' norms from their local shards: each shard's sum of
+        squares, summed over the fsdp ranks (the dp ranks hold the same)."""
+        sq = torch.stack([g.float().pow(2).sum() for g in grads])
+        dist.all_reduce(sq, group=fsdp_group)
+        return list(sq.sqrt())
+
+    def init_fn(seed: int = 0) -> TrainState:
+        full = init_random(YoloSeg(variant=model.variant, num_classes=model.num_classes,
+                                   num_mask_coeffs=model.num_mask_coeffs,
+                                   input_hw=model.input_hw), seed)
+        with torch.no_grad():
+            for k, p in full.named_parameters():
+                _copy_into(params[k], p)
+        live["opt"] = optimizer.init(params)
+        return TrainState(params=params, opt_state=live["opt"],
+                          step=torch.zeros((), dtype=torch.int64))
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if live["opt"] is None:
+            raise RuntimeError("make_train_step: call init_fn before step_fn")
+        _adopt(state, params, live["opt"])
+        b = batch["images"].shape[0]
+        if b % world:
+            raise ValueError(f"a global batch of {b} does not split over {world} ranks")
+        local = {k: local_part(v, mesh, batch_layout) for k, v in batch.items()}
+        loss, parts = seg_detection_loss(model, local["images"], local, total=total)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params.values()]
+        with torch.no_grad():
+            optimizer.step(engine, params, grads, live["opt"], norms=norms)
+        metrics = {"loss": total(loss), **{k: total(v) for k, v in parts.items()}}
+        return TrainState(params=params, opt_state=live["opt"], step=state.step + 1), metrics
+
+    return init_fn, step_fn

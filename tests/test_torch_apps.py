@@ -6,9 +6,12 @@ thing:
 - `two_cam` and `one_cam` on a synthetic and on a recorded source, with the
   CSV checks of `tests/test_cli_apps.py`;
 - `save_ply` and the timing CSVs byte for byte against the JAX package's;
-- every flag the port refuses, with its ROADMAP item, and the
-  accumulation, tracker and ``--quantize`` flags, whose configs equal the
-  JAX apps' (with ``--quantize`` also the calibrated scales);
+- ``--live`` and ``--save-frames``, and the accumulation, tracker and
+  ``--quantize`` flags, whose configs equal the JAX apps' (with
+  ``--quantize`` also the calibrated scales);
+- `track_only` against the JAX app's per-box lines, `viewer --once`
+  against the JAX viewer's, the `plots` CLI, and the ZED adapter over a
+  fake SDK against the JAX package's frames;
 - `record` against the JAX recorder, byte for byte but for `generator`;
 - `convert_weights` against the JAX converter, array for array, and a
   `.pt` weights path against its `.npz`.
@@ -16,6 +19,7 @@ thing:
 
 import argparse
 import csv
+import dataclasses
 import json
 import os
 import sys
@@ -36,7 +40,7 @@ from rt3d_torch.io.format import read_header
 from rt3d_torch.models.yolo import YoloSeg, load_weights
 from rt3d_torch.pipeline.step import build_pipeline
 from rt3d_torch.runtime import STAGES, TimingLog, format_op_times, profile_op_times
-from rt3d_torch.viz.cloud import save_ply
+from rt3d_torch.viz.cloud import load_ply, save_ply
 from tests.tiny import H, W, tiny_config
 
 APPS = {"two_cam": (two_cam, 2), "one_cam": (one_cam, 1)}
@@ -144,19 +148,44 @@ def test_timing_csvs_match_jax_layout(tmp_path):
     assert psum == jsum
 
 
-REFUSED = [
-    (["--live", "spool"], "ROADMAP item 15"),
-    (["--save-frames"], "ROADMAP item 15"),
-]
-
-
 @pytest.mark.parametrize("app", sorted(APPS))
-@pytest.mark.parametrize("flags,item", REFUSED)
-def test_unported_flags_are_refused(app, flags, item, tmp_path):
+@pytest.mark.parametrize("flag", ["--live", "--save-frames"])
+def test_live_and_save_frames_run(app, flag, rts, tmp_path):
+    """``--live`` and ``--save-frames`` (refused until the port had the
+    spool and the drawing) run over 6 recorded frames: ``--live`` fills the
+    spool as the JAX apps do (every 5th frame for two_cam, every 30th for
+    one_cam; a status, the annotated frame, the cloud); ``--save-frames``
+    writes two_cam's annotated side-by-side frame 0, and nothing in one_cam,
+    whose JAX app reads the flag nowhere."""
     mod, cams = APPS[app]
-    with pytest.raises(NotImplementedError, match=item):
-        mod.main(["--frames", "1", "--config", config_json(tmp_path, cams), "--device", "cpu",
-                  "--log-dir", str(tmp_path / "runs"), *flags])
+    spool, log_dir = tmp_path / "spool", tmp_path / "runs"
+    flags = ["--live", str(spool)] if flag == "--live" else [flag]
+    assert mod.main(["--source", rts, "--frames", "6", "--config", config_json(tmp_path, cams),
+                     "--device", "cpu", "--warmup", "1", "--log-dir", str(log_dir),
+                     *flags]) == 0
+    if flag == "--live":
+        status = json.loads((spool / "status.json").read_text())
+        assert status["frame"] == (5 if app == "two_cam" else 0)
+        assert status.keys() == {"frame", "fps", "timestamp", "objects", "workspace_points"}
+        assert (spool / "frame.png").exists()
+        pts, cols = load_ply(str(spool / "cloud.ply"))
+        assert len(pts) == status["workspace_points"] + int(np.sum(cols[:, 0] == 255))
+        return
+    import cv2
+
+    frames = sorted(p.name for p in log_dir.glob("frame_*.png"))
+    assert frames == (["frame_00000.png"] if app == "two_cam" else [])
+    if frames:
+        assert cv2.imread(str(log_dir / frames[0])).shape == (H // 2, W, 3)
+
+
+def test_save_frames_without_cv2_fails_as_jax(rts, tmp_path, monkeypatch):
+    """Where cv2 is missing, ``--save-frames`` fails at its import, as the
+    JAX app's does: no fallback."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError):
+        two_cam.main(["--source", rts, "--frames", "1", "--config", config_json(tmp_path, 2),
+                      "--device", "cpu", "--log-dir", str(tmp_path / "runs"), "--save-frames"])
 
 
 def _jax_config(flags, tmp_path, cams):
@@ -348,3 +377,191 @@ def test_converter_refuses_a_model_it_does_not_cover(checkpoint):
 
     with pytest.raises(ValueError, match="conversion mismatch"):
         convert_checkpoint(str(checkpoint), YoloSeg(variant="s", input_hw=(64, 96)))
+
+
+@pytest.fixture(scope="module")
+def rts_1cam(tmp_path_factory):
+    """A 4-frame, 1-camera, 240x320 recording of two objects, by the port's
+    recorder: the size at which the n detector finds them."""
+    path = tmp_path_factory.mktemp("rec1") / "seq1.rts"
+    assert record.main([str(path), "--frames", "4", "--cameras", "1", "--objects", "2",
+                        "--height", "240", "--width", "320"]) == 0
+    return str(path)
+
+
+def test_track_only_prints_the_jax_apps_lines(rts_1cam, tmp_path, monkeypatch, capsys):
+    """`track_only` on a recording, against the JAX app on the same
+    recording, weights and config (n model at (192, 256), float32 on both
+    sides): the same per-box lines (track ID, class, score, centre depth)
+    frame by frame, the FPS lines aside; with ``--live`` a spool of every
+    5th frame (`publish_frame`'s status with the detection count) and with
+    ``--save-frames`` the annotated frame 0."""
+    from rt3d.apps import track_only as jtrack_only
+    from rt3d.models.yolo import core as ycore
+    from rt3d_torch.apps import track_only
+
+    d = tiny_config(num_cameras=1).to_dict()
+    d["model"].update(input_hw=(192, 256), compute_dtype="float32",
+                      preprocess_dtype="float32", mask_resize_dtype="float32")
+    cfg = tmp_path / "cfg.json"
+    Config.from_dict(d).to_json(str(cfg))
+    flags = ["--source", rts_1cam, "--frames", "4", "--config", str(cfg), "--weights",
+             os.path.join(ROOT, "weights", "yolo11n_synth_seg.npz")]
+    spool, log_dir = tmp_path / "spool", tmp_path / "runs"
+    assert track_only.main([*flags, "--device", "cpu", "--log-dir", str(log_dir),
+                            "--live", str(spool), "--save-frames"]) == 0
+    got = capsys.readouterr().out.splitlines()
+    monkeypatch.setattr(sys, "argv", ["track_only", *flags, "--log-dir", str(tmp_path / "j")])
+    ycore.set_compute_dtype(jax.numpy.float32)
+    try:
+        assert jtrack_only.main() == 0
+    finally:
+        ycore.set_compute_dtype(jax.numpy.bfloat16)
+    exp = capsys.readouterr().out.splitlines()
+    boxes = [ln for ln in got if " id=" in ln]
+    assert boxes == [ln for ln in exp if " id=" in ln] and len(boxes) >= 4
+    assert [ln.split(":")[0] for ln in got if ln.endswith("FPS")] == ["frame 0"]
+    status = json.loads((spool / "status.json").read_text())
+    assert status["frame"] == 0 and status["detections"] == sum(
+        ln.startswith("frame 0:") for ln in boxes)
+    assert (spool / "frame.png").exists() and (log_dir / "track_00000.png").exists()
+
+
+def test_viewer_once_prints_the_jax_viewers_line(tmp_path, monkeypatch, capsys):
+    """`viewer --once` on a spool, headless (no DISPLAY): exit 0, the JAX
+    viewer's status line, the rendered scene; the `plots` CLI writes both
+    charts of an app's logs, as the JAX CLI does."""
+    from rt3d.apps import plots as jplots_app
+    from rt3d.apps import viewer as jviewer
+    from rt3d_torch.apps import plots as plots_app
+    from rt3d_torch.apps import viewer
+    from rt3d_torch.viz.live import LiveSpool
+
+    monkeypatch.delenv("DISPLAY", raising=False)
+    spool = tmp_path / "spool"
+    LiveSpool(str(spool), every=1).publish_frame(7, panel=np.zeros((4, 4, 3), np.uint8),
+                                                  objects=2, workspace_points=30)
+    assert viewer.main([str(spool), "--once", "--out-dir", str(tmp_path / "v")]) == 0
+    got = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["viewer", str(spool), "--once"])
+    assert jviewer.main() == 0
+    assert got == capsys.readouterr().out
+    assert got.startswith("frame 7 ") and "2 objects  30 workspace pts" in got
+
+    logs = tmp_path / "logs"
+    logs.mkdir()
+    log = TimingLog(str(logs / "fps_log.csv"), str(logs / "timings.csv"))
+    for i in range(20):
+        log.add("YOLO11 Inference", 0.02 + 0.001 * i)
+        log.end_iteration(0.05)
+    log.write_timings()
+    assert plots_app.main(["--log-dir", str(logs)]) == 0
+    out = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["plots", "--log-dir", str(logs), "--out-dir",
+                                      str(tmp_path / "jplots")])
+    assert jplots_app.main() == 0
+    assert sorted(os.listdir(logs / "plots")) == sorted(os.listdir(tmp_path / "jplots")) == [
+        "average_timing_per_step.png", "fps_over_time_smoothed_30s.png"]
+    assert out.startswith("wrote:") and out.count(".png") == 2
+
+
+def _fake_zed(src):
+    """A `pyzed.sl`-shaped SDK module and camera class serving `src`'s
+    frames as the SDK does: BGRA images, NaN holes in depth, a status per
+    grab (`tests/test_cli_apps.py::test_mock_zed_sdk_live_adapter`)."""
+
+    class Ns:
+        pass
+
+    class Mat:
+        def __init__(self):
+            self._d = None
+
+        def get_data(self):
+            return self._d
+
+    sl = Ns()
+    sl.Mat = Mat
+    sl.VIEW = Ns()
+    sl.VIEW.LEFT = 1
+    sl.MEASURE = Ns()
+    sl.MEASURE.DEPTH = 2
+    sl.ERROR_CODE = Ns()
+    sl.ERROR_CODE.SUCCESS = 0
+
+    class Zed:
+        def __init__(self, cam, fail_at=()):
+            self._c, self._fail, self._grabs, self._cur = cam, set(fail_at), 0, None
+
+        def grab(self, runtime=None):
+            i = self._grabs
+            self._grabs += 1
+            if i in self._fail:
+                return 9
+            self._cur = src.get(i % 4)
+            return 0
+
+        def retrieve_image(self, mat, view):
+            assert view == sl.VIEW.LEFT
+            bgr = self._cur.rgb[self._c]
+            mat._d = np.concatenate([bgr, np.full((*bgr.shape[:2], 1), 255, np.uint8)], -1)
+
+        def retrieve_measure(self, mat, measure):
+            assert measure == sl.MEASURE.DEPTH
+            dep = np.array(self._cur.depth[self._c], np.float32)
+            dep[:2, :2] = np.nan
+            dep[3, 3] = np.inf
+            mat._d = dep
+
+        def get_camera_information(self):
+            intr = src.cameras()[self._c].intrinsics
+            info = Ns()
+            info.camera_configuration = Ns()
+            info.camera_configuration.calibration_parameters = Ns()
+            lc = Ns()
+            lc.fx, lc.fy, lc.cx, lc.cy = intr.fx, intr.fy, intr.cx, intr.cy
+            info.camera_configuration.calibration_parameters.left_cam = lc
+            return info
+
+    return sl, Zed
+
+
+def test_zed_adapter_gives_the_jax_frames(tmp_path):
+    """`zed_sdk_source` over a fake SDK, against the JAX package's over an
+    identical one: the factory intrinsics, and over 6 grabs (camera 1
+    failing at 2 and 4) the same frames: alpha stripped, NaN and inf depth
+    as 0, a failed grab a zero frame with status 1. The port's
+    `PipelineDriver` then runs over it and skips the failed frames."""
+    from rt3d.io.live import zed_sdk_source as jzed_sdk_source
+    from rt3d.io.synthetic import SyntheticSource as JSyntheticSource
+    from rt3d_torch.config import with_cameras
+    from rt3d_torch.io.live import CallbackSource, zed_sdk_source
+    from rt3d_torch.runtime import PipelineDriver
+
+    src = JSyntheticSource(num_cameras=2, num_frames=4, hw=(H, W), num_objects=1)
+    sources = {}
+    for name, fn in (("port", zed_sdk_source), ("jax", jzed_sdk_source)):
+        sl, Zed = _fake_zed(src)
+        sources[name] = fn(sl, [Zed(0), Zed(1, fail_at={2, 4})], hw=(H, W))
+    live, jlive = sources["port"], sources["jax"]
+    assert isinstance(live, CallbackSource) and live.num_cameras == 2
+    assert live.frame_hw == (H, W) and live.num_frames is None
+    for a, b in zip(live.cameras(), jlive.cameras()):
+        assert a.name == b.name and dataclasses.asdict(a.intrinsics) == dataclasses.asdict(
+            b.intrinsics)
+    for i in range(6):
+        p, q = live.get(i), jlive.get(i)
+        for k in ("rgb", "depth", "status"):
+            np.testing.assert_array_equal(getattr(p, k), getattr(q, k))
+        assert p.rgb.shape == (2, H, W, 3) and p.rgb.dtype == np.uint8 and p.index == i
+        assert np.isfinite(p.depth).all() and p.depth.dtype == np.float32
+        assert p.status.tolist() == [0, 1 if i in (2, 4) else 0]
+        if i in (2, 4):
+            assert not p.rgb[1].any() and not p.depth[1].any()
+
+    sl, Zed = _fake_zed(src)
+    fresh = zed_sdk_source(sl, [Zed(0), Zed(1, fail_at={2, 4})], hw=(H, W))
+    cfg = with_cameras(Config.from_dict(tiny_config().to_dict()), fresh.cameras())
+    res = PipelineDriver(build_pipeline(cfg, device="cpu"), pipeline_depth=2).run(
+        fresh, num_frames=6, warmup=1)
+    assert res.skipped_frames == 2 and res.mean_fps > 0

@@ -275,14 +275,6 @@ def test_overfit_single_box(jax_init):
     assert s[pos, 2].mean() > 2 * s[~pos, 2].mean()
 
 
-def test_mesh_raises():
-    tm = YoloSeg(variant="n", num_classes=NC, input_hw=INPUT_HW)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        make_train_step(tm, mesh=object())
-    with pytest.raises(RuntimeError, match="init_fn"):
-        make_train_step(tm)[1](None, {})
-
-
 def test_port_weights_load_into_jax(jax_init, tmp_path):
     """One port step, its parameters saved as the trainer saves them (fp16
     `.npz` in the JAX layout), load with the JAX package's `load_params`;
