@@ -9,4 +9,6 @@
   python -m rt3d_torch.apps.record          ~ (new) sequence recorder
   python -m rt3d_torch.apps.convert_weights ~ the ultralytics .pt load
   python -m rt3d_torch.apps.train_synth     ~ tools/train_synth.py
+  python -m rt3d_torch.apps.calibrate_quant ~ tools/calibrate_quant.py
+  python -m rt3d_torch.apps.eval_quant      ~ tools/eval_quant_chip.py
 """

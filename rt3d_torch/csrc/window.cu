@@ -48,9 +48,18 @@
 // a warp-uniform early exit once every lane has found a duplicate slower,
 // even where 92 % of the live keys are duplicates: a warp holds 64 outputs,
 // and one unique key among them keeps it walking.
-// The window is at most 4 rows x 6 columns each side (the template covers
-// each dy_max up to 4; dx_max is a uniform runtime bound); the entries
-// refuse anything wider.
+// That body covers windows of at most 4 rows x 6 columns each side (the
+// template covers each dy_max up to 4; dx_max is a uniform runtime bound).
+// Any wider window (dy_max > 4 or dx_max > 6) takes `window_wide_kernel`:
+// one thread an output pixel, reading its window straight from global
+// memory through L1 and L2, the offsets clamped to the grid (a neighbour
+// outside it counts as key `sentinel`, word 0: it changes no output). K1
+// keeps the exact pixel skip of a sentinel key and stops at the first
+// duplicate; K2 walks every pixel, since a sentinel key's output is the OR
+// of the words under sentinel neighbours, which need not be 0. Its bound is
+// the staged-tile body's (the compares the window's live keys need, at the
+// INT32 rate, or the grid's bytes); reading each neighbour from L1 rather
+// than a staged tile, it runs about 10x that bound (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -195,17 +204,64 @@ window_kernel(const int32_t* __restrict__ keys,
   }
 }
 
+constexpr int kWideCols = 32;
+constexpr int kWideRows = 8;
+
+// K1 when OR is false (`words` unused), K2 when it is true; any dy_max,
+// dx_max >= 0.
+template <bool OR>
+__global__ void __launch_bounds__(kWideCols * kWideRows)
+window_wide_kernel(const int32_t* __restrict__ keys,
+                   const int32_t* __restrict__ words, int32_t* __restrict__ out,
+                   int h, int w, int dy_max, int dx_max, int32_t sentinel) {
+  const int c = blockIdx.x * kWideCols + threadIdx.x;
+  const int r = blockIdx.y * kWideRows + threadIdx.y;
+  if (r >= h || c >= w) return;
+  const size_t g = static_cast<size_t>(r) * w + c;
+  const int32_t cur = __ldg(keys + g);
+  if (!OR && cur == sentinel) {
+    out[g] = sentinel;
+    return;
+  }
+  const int c_lo = c - min(dx_max, c);
+  const int c_hi = c + min(dx_max, w - 1 - c);
+  const int r_lo = r - min(dy_max, r);
+  bool found = false;
+  int32_t prev = 0;
+  for (int rr = r; rr >= r_lo && !found; --rr) {
+    const size_t row = static_cast<size_t>(rr) * w;
+    const int hi = rr == r ? c - 1 : c_hi;  // the own row: columns before c
+    for (int cc = c_lo; cc <= hi; ++cc) {
+      if (__ldg(keys + row + cc) == cur) {
+        if (OR) {
+          prev |= __ldg(words + row + cc);
+        } else {
+          found = true;
+          break;
+        }
+      }
+    }
+  }
+  out[g] = OR ? prev : (found ? sentinel : cur);
+}
+
 template <bool OR>
 int launch_window(const int32_t* keys, const int32_t* words, int32_t* out,
                   int h, int w, int dy_max, int dx_max, int32_t sentinel,
                   void* stream) {
-  if (dx_max < 0 || dx_max > kMaxDx) return static_cast<int>(cudaErrorInvalidValue);
+  if (dy_max < 0 || dx_max < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (h == 0 || w == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dy_max > kMaxDy || dx_max > kMaxDx) {
+    const dim3 grid((w + kWideCols - 1) / kWideCols, (h + kWideRows - 1) / kWideRows);
+    window_wide_kernel<OR><<<grid, dim3(kWideCols, kWideRows), 0, s>>>(
+        keys, words, out, h, w, dy_max, dx_max, sentinel);
+    return static_cast<int>(cudaGetLastError());
+  }
   const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
                    (!OR || reinterpret_cast<uintptr_t>(words) % 16 == 0);
   const dim3 grid((w + kCols - 1) / kCols, (h + kRowsTile - 1) / kRowsTile);
   const dim3 block(kCols, kGroups);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dy_max) {
 #define RT3D_WINDOW_CASE(D)                                                  \
     case D:                                                                  \
@@ -225,8 +281,9 @@ int launch_window(const int32_t* keys, const int32_t* words, int32_t* out,
 
 }  // namespace
 
-// Both entries take dy_max in [0, 4] and dx_max in [0, 6]; anything else is
-// refused with cudaErrorInvalidValue (the wrappers raise before that).
+// Both entries take any dy_max >= 0 and dx_max >= 0 (the staged-tile body up
+// to 4 x 6, the wide kernel beyond); a negative extent is refused with
+// cudaErrorInvalidValue (the wrappers raise before that).
 extern "C" int rt3d_window_dedupe(const int32_t* keys, int32_t* out, int h,
                                   int w, int dy_max, int dx_max,
                                   int32_t sentinel, void* stream) {

@@ -324,17 +324,18 @@ def window_dedupe_plain(kg: torch.Tensor, dy_max: int = 4,
 
 
 def _check_window(name: str, dy_max: int, dx_max: int) -> None:
-    """The window kernels take up to 4 rows above and 6 columns each side."""
-    if not (0 <= dy_max <= 4 and 0 <= dx_max <= 6):
-        raise ValueError(f"{name}: the kernel takes dy_max <= 4 and "
-                         f"dx_max <= 6, got {dy_max} and {dx_max}")
+    """The window kernels take any window of non-negative extents."""
+    if dy_max < 0 or dx_max < 0:
+        raise ValueError(f"{name}: the window's extents must be >= 0, "
+                         f"got {dy_max} and {dx_max}")
 
 
 def window_dedupe(kg: torch.Tensor, dy_max: int = 4, dx_max: int = 6,
                   plain: bool = False) -> torch.Tensor:
     """K1 (replaces `_window_dedupe_kernel`, rt3d/geometry/pallas_ops.py):
-    (H, W) int32 keys with window duplicates replaced by the sentinel. The
-    kernel takes windows of up to 4 rows above and 6 columns each side."""
+    (H, W) int32 keys with window duplicates replaced by the sentinel, for
+    any window (the staged-tile kernel up to 4 rows above and 6 columns
+    each side, the wide kernel beyond)."""
     if not kernels.use_kernel(kg, plain):
         return window_dedupe_plain(kg, dy_max, dx_max)
     kernels.check(kg, torch.int32, (-1, -1), "window_dedupe keys")
@@ -360,8 +361,8 @@ def window_prev_or_plain(kg: torch.Tensor, wg: torch.Tensor, dy_max: int = 4,
 def window_prev_or(kg: torch.Tensor, wg: torch.Tensor, dy_max: int = 4,
                    dx_max: int = 6, plain: bool = False) -> torch.Tensor:
     """K2 (replaces `_window_prev_or_kernel`, rt3d/geometry/pallas_ops.py):
-    (H, W) int32 OR of preceding same-key window words. The kernel takes
-    windows of up to 4 rows above and 6 columns each side."""
+    (H, W) int32 OR of preceding same-key window words, for any window (as
+    `window_dedupe`)."""
     if not kernels.use_kernel(kg, plain):
         return window_prev_or_plain(kg, wg, dy_max, dx_max)
     kernels.check(kg, torch.int32, (-1, -1), "window_prev_or keys")

@@ -11,8 +11,13 @@ JAX package chooses them:
 * K3 `sor_knn_mean_slots` over object slots and K5 `sor_knn_mean` over one
   cloud of 256..4096 points, both from `rt3d_torch/csrc/sor_knn.cu`, which
   replaces the Pallas `_sor_knn_kernel` and keeps its arithmetic: invalid
-  points at (1e5, 1e5, 1e5) and d2 = max(|q|^2 + |r|^2 - 2 q.r, 0). Each
-  has its plain PyTorch version, `sor_knn_mean_plain`.
+  points at (1e5, 1e5, 1e5) and d2 = max(|q|^2 + |r|^2 - 2 q.r, 0). They
+  take every k from 1 to the cloud's rows, as the JAX package does: up to
+  `REGISTER_MAX_K` the register path, above it the radix-select kernel.
+  Their callers give them 256 to 4096 rows; the radix-select kernel's
+  shared memory holds up to about 10 000 (beyond, its launch is refused
+  and `kernels.launch` raises). Each has its plain PyTorch version,
+  `sor_knn_mean_plain`.
 * the exact form `knn_mean_xla` (the JAX package's `_knn_mean_xla`) for
   clouds and slots under 256 points, on every device: the same identity,
   with the diagonal set to 0 and invalid columns to 3.4e38.
@@ -36,8 +41,9 @@ BIG = 3.4e38
 EXACT_MAX_N = 4096
 # clouds below this many rows take the exact form, not K5
 KERNEL_MIN_N = 256
-# largest k the kernels keep in registers (`kMaxK`, sor_knn.cu)
-KERNEL_MAX_K = 32
+# largest k of the kernels' register path (`kMaxK`, sor_knn.cu); above it
+# they take the radix-select kernel, counted apart in `kernels.LAUNCHES`
+REGISTER_MAX_K = 32
 # Morton key of invalid points: above every 30-bit code, so they sort last
 INVALID_KEY = 0x7FFFFFFF
 
@@ -72,9 +78,13 @@ def sor_knn_mean_plain(points: torch.Tensor, valid: torch.Tensor,
 
 
 def _check_k(k: int, n: int) -> None:
-    if not 1 <= k <= min(KERNEL_MAX_K, n):
-        raise ValueError(
-            f"sor_knn kernels take 1 <= k <= min({KERNEL_MAX_K}, {n}), got {k}")
+    if not 1 <= k <= n:
+        raise ValueError(f"sor_knn kernels take 1 <= k <= {n} (the rows), got {k}")
+
+
+def _launch_names(name: str, k: int) -> tuple:
+    """`name`, and its large-k count when k takes the radix-select kernel."""
+    return (name, f"{name}_large_k") if k > REGISTER_MAX_K else (name,)
 
 
 def sor_knn_mean_slots(points: torch.Tensor, valid: torch.Tensor, k: int,
@@ -91,8 +101,9 @@ def sor_knn_mean_slots(points: torch.Tensor, valid: torch.Tensor, k: int,
     _check_k(k, cap)
     mean = torch.empty((s, cap), dtype=torch.float32, device=points.device)
     sat = torch.empty((s, cap), dtype=torch.bool, device=points.device)
-    kernels.launch("sor_knn_slots", "rt3d_sor_knn_slots", points.data_ptr(),
-                   valid.data_ptr(), mean.data_ptr(), sat.data_ptr(), s, cap, k)
+    kernels.launch(_launch_names("sor_knn_slots", k), "rt3d_sor_knn_slots",
+                   points.data_ptr(), valid.data_ptr(), mean.data_ptr(), sat.data_ptr(),
+                   s, cap, k)
     return mean, sat
 
 
@@ -109,8 +120,8 @@ def sor_knn_mean(points: torch.Tensor, valid: torch.Tensor, k: int,
     _check_k(k, n)
     mean = torch.empty((n,), dtype=torch.float32, device=points.device)
     sat = torch.empty((n,), dtype=torch.bool, device=points.device)
-    kernels.launch("sor_knn", "rt3d_sor_knn", points.data_ptr(), valid.data_ptr(),
-                   mean.data_ptr(), sat.data_ptr(), n, k)
+    kernels.launch(_launch_names("sor_knn", k), "rt3d_sor_knn", points.data_ptr(),
+                   valid.data_ptr(), mean.data_ptr(), sat.data_ptr(), n, k)
     return mean, sat
 
 

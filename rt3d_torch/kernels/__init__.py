@@ -2,8 +2,10 @@
 
 Each wrapper (in the geometry module that owns its plain PyTorch version)
 checks its tensors, allocates its outputs and calls `launch`, which adds one
-to the wrapper's entry of `LAUNCHES`. A CPU tensor, or an explicit
-``plain=True``, takes the plain version and launches nothing.
+to the wrapper's entry of `LAUNCHES` (and, for K3 and K5 at k above their
+register path's 32, to its ``_large_k`` entry too: the launch went to the
+radix-select kernel). A CPU tensor, or an explicit ``plain=True``, takes the
+plain version and launches nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ LAUNCHES: dict[str, int] = {
     "sor_knn_slots": 0,    # K3
     "min_sqdist": 0,       # K4
     "sor_knn": 0,          # K5
+    "sor_knn_slots_large_k": 0,  # K3 launches at k > 32 (radix select)
+    "sor_knn_large_k": 0,        # K5 launches at k > 32 (radix select)
 }
 
 
@@ -49,13 +53,15 @@ def check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def launch(name: str, entry: str, *args) -> None:
+def launch(name, entry: str, *args) -> None:
     """Call C entry `entry` of the kernel library on the current stream and
-    count the launch under `name`. Raises if the launch was refused."""
+    count the launch under `name` (a counter, or a tuple of counters).
+    Raises if the launch was refused."""
     from rt3d_torch.kernels.build import load_library
 
     fn = getattr(load_library(), entry)
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    for n in (name,) if isinstance(name, str) else name:
+        LAUNCHES[n] += 1

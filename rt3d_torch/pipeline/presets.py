@@ -98,10 +98,15 @@ def preset_weights(name: str) -> str:
     return os.path.join(ROOT, "weights", PRESETS[name].weights)
 
 
-def preset_config(name: str, src: SyntheticSource, dtype: Optional[str] = None) -> Config:
+def preset_config(name: str, src: SyntheticSource, dtype: Optional[str] = None,
+                  pipeline: Optional[Dict] = None) -> Config:
     """Preset `name` on the cameras of `src`; ``dtype`` (e.g. "float32")
-    replaces the model's compute, preprocess and mask-resize dtypes."""
+    replaces the model's compute, preprocess and mask-resize dtypes, and
+    `pipeline` overrides fields of its `PipelineConfig` (e.g.
+    ``{"sor_nb_neighbors": 50}``)."""
     cfg = PRESETS[name].config()
+    if pipeline:
+        cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline, **pipeline))
     cam = cfg.rig.cameras[0]
     cfg = with_cameras(cfg, [dataclasses.replace(c, fps=cam.fps, depth_min_m=cam.depth_min_m)
                              for c in src.cameras()])
@@ -113,13 +118,14 @@ def preset_config(name: str, src: SyntheticSource, dtype: Optional[str] = None) 
 
 def synthetic_preset(name: str, frames: int, device="cuda", plain_kernels: bool = False,
                      dtype: Optional[str] = None,
-                     act_scales: Optional[Dict[str, float]] = None
-                     ) -> Tuple[Pipeline, SyntheticSource]:
-    """(pipeline, source) of preset `name`, its model in `dtype` when given.
-    A quantized preset's model is quantized against `act_scales` when
-    given, else calibrated live on frames 0 to `CALIB_FRAMES` - 1."""
+                     act_scales: Optional[Dict[str, float]] = None,
+                     pipeline: Optional[Dict] = None) -> Tuple[Pipeline, SyntheticSource]:
+    """(pipeline, source) of preset `name`, its model in `dtype` and its
+    pipeline config overridden by `pipeline` when given. A quantized
+    preset's model is quantized against `act_scales` when given, else
+    calibrated live on frames 0 to `CALIB_FRAMES` - 1."""
     src = preset_source(name, frames)
-    pipe = build_pipeline(preset_config(name, src, dtype), weights=preset_weights(name),
+    pipe = build_pipeline(preset_config(name, src, dtype, pipeline), weights=preset_weights(name),
                           device=device, plain_kernels=plain_kernels)
     if PRESETS[name].quantize:
         batches = () if act_scales else synth_calib_batches(pipe, src, range(CALIB_FRAMES))

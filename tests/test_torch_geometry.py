@@ -119,8 +119,8 @@ def test_window_dedupe_banded_matches_pallas_and_xla(rng, h, w, dy, dx):
 
 @pytest.mark.parametrize("dy,dx", [(5, 6), (4, 7), (6, 9)])
 def test_window_wrappers_take_wide_windows_on_cpu(rng, dy, dx):
-    """The kernels stop at 4 x 6; on the CPU the wrappers take any window
-    and equal the XLA form there."""
+    """Windows wider than 4 x 6 (the card's wide kernel): on the CPU the
+    wrappers take them too and equal the XLA form there."""
     kg, wg = _key_grid(rng, 20, 40, nkeys=12)
     np.testing.assert_array_equal(
         N(ops.window_dedupe(T(kg), dy, dx)),

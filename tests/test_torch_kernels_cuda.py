@@ -196,15 +196,104 @@ def test_sor_inlier_mask_slots_below_kernel_size(gen):
 
 
 def test_sor_knn_rejects_bad_tensors(gen):
+    """k outside [1, rows] and bad tensors raise before any launch."""
     pts, valid = _cloud(gen, 300)
-    with pytest.raises(ValueError):
-        sor.sor_knn_mean(pts, valid, 40)
+    before = dict(kernels.LAUNCHES)
+    for k in (0, 301):
+        with pytest.raises(ValueError):
+            sor.sor_knn_mean(pts, valid, k)
+        with pytest.raises(ValueError):
+            sor.sor_knn_mean_slots(pts[None], valid[None], k)
     with pytest.raises(TypeError):
         sor.sor_knn_mean(pts.double(), valid, 20)
     with pytest.raises(ValueError):
         sor.sor_knn_mean(pts.t().contiguous().t(), valid, 20)
     with pytest.raises(ValueError):
         sor.sor_knn_mean(pts, valid[:-1], 20)
+    assert kernels.LAUNCHES == before
+
+
+def _no_plain(monkeypatch):
+    """Make the plain SOR statistic, `torch.topk` and `torch.cdist` raise:
+    a kernel call must run none of them."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain path ran")
+
+    for mod, name in ((sor, "sor_knn_mean_plain"), (torch, "topk"), (torch, "cdist"),
+                      (ops, "window_dedupe_plain"), (ops, "window_prev_or_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("k", [33, 40, 64, 100, 300])
+def test_sor_knn_large_k_equals_plain(gen, monkeypatch, k):
+    """K5 at k above the register path's 32, up to the cloud's 300 rows:
+    bit for bit its plain version, one launch of the radix-select kernel,
+    no plain path run."""
+    pts, valid = _cloud(gen, 300)
+    pmean, psat = sor.sor_knn_mean(pts, valid, k, plain=True)
+    before = dict(kernels.LAUNCHES)
+    with monkeypatch.context() as m:
+        _no_plain(m)
+        mean, sat = sor.sor_knn_mean(pts, valid, k)
+    assert kernels.LAUNCHES["sor_knn"] == before["sor_knn"] + 1
+    assert kernels.LAUNCHES["sor_knn_large_k"] == before["sor_knn_large_k"] + 1
+    assert torch.equal(sat, psat)
+    assert torch.equal(mean, pmean)
+
+
+@pytest.mark.parametrize("layout", ["scattered", "two_runs", "dups"])
+@pytest.mark.parametrize("k", [33, 48, 64, 256, "cap"])
+@pytest.mark.parametrize("cap", [256, 300, 2048, 4096])
+def test_sor_knn_large_k_equals_plain_bitwise(gen, cap, k, layout):
+    """K3 at k above 32, up to k = cap, over slots with 0, 1, k - 1, k,
+    k + 1 and cap valid rows, and K5 over each slot's cloud: bit for bit
+    the plain version on every row (invalid rows included), K3's launch
+    counted as a large-k one."""
+    k = cap if k == "cap" else k
+    n_valids = sorted({n for n in (0, 1, k - 1, k, k + 1, cap) if n <= cap})
+    pts, valid = _slots(gen, cap, n_valids, layout)
+    before = dict(kernels.LAUNCHES)
+    mean, sat = sor.sor_knn_mean_slots(pts, valid, k)
+    assert kernels.LAUNCHES["sor_knn_slots"] == before["sor_knn_slots"] + 1
+    assert kernels.LAUNCHES["sor_knn_slots_large_k"] == before["sor_knn_slots_large_k"] + 1
+    pmean, psat = sor.sor_knn_mean_slots(pts, valid, k, plain=True)
+    assert torch.equal(sat, psat)
+    assert torch.equal(mean, pmean)
+    for i in range(len(n_valids)):
+        m, st = sor.sor_knn_mean(pts[i], valid[i], k)
+        assert torch.equal(m, mean[i]) and torch.equal(st, sat[i])
+
+
+def test_sor_knn_refused_launch_raises(gen):
+    """A slot of 16 384 rows asks either path (k = 40 and k = 20) for more
+    shared memory than a block may have: the refused launch raises and
+    counts nothing, and leaves no error behind for the next launch, ours
+    or PyTorch's."""
+    pts, valid = _slots(gen, 16384, [9000], "scattered")
+    before = dict(kernels.LAUNCHES)
+    for k in (40, 20):
+        with pytest.raises(RuntimeError):
+            sor.sor_knn_mean_slots(pts, valid, k)
+    assert kernels.LAUNCHES == before
+    small, sv = _slots(gen, 300, [200], "scattered")
+    mean, sat = sor.sor_knn_mean_slots(small, sv, 40)
+    assert torch.equal(mean, sor.sor_knn_mean_slots(small, sv, 40, plain=True)[0])
+    torch.cuda.synchronize()
+
+
+def test_sor_inlier_mask_slots_at_50_neighbours(gen, monkeypatch):
+    """The fused step's call, `sor_inlier_mask_slots` at nb_neighbors = 50
+    on 20 slots of 2048: one K3 launch through the radix-select kernel, no
+    plain path, and its plain run's keep masks."""
+    pts, valid = _slots(gen, 2048, [1500, 900, 700, 400, 300, 120, 49, 15] + [0] * 12,
+                        "two_runs")
+    exp = sor.sor_inlier_mask_slots(pts, valid, 50, 1.5, plain=True)
+    before = dict(kernels.LAUNCHES)
+    with monkeypatch.context() as m:
+        _no_plain(m)
+        keep = sor.sor_inlier_mask_slots(pts, valid, 50, 1.5)
+    assert kernels.LAUNCHES["sor_knn_slots_large_k"] == before["sor_knn_slots_large_k"] + 1
+    assert torch.equal(keep, exp) and 0 < int(keep.sum()) < int(valid.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -338,17 +427,42 @@ def test_window_prev_or_sparse_grids(gen, h, w, sent_words):
     assert torch.equal(got, ops.window_prev_or(kg, wg, plain=True))
 
 
-@pytest.mark.parametrize("window", [(5, 6), (4, 7), (-1, 6)])
+@pytest.mark.parametrize("window", [(-1, 6), (4, -1), (-3, -2)])
 @pytest.mark.parametrize("kernel", ["window_dedupe", "window_prev_or"])
-def test_window_kernels_reject_large_window(gen, kernel, window):
-    """K1 and K2 take windows up to 4 x 6 on the card and raise beyond,
-    before any launch."""
+def test_window_kernels_reject_negative_window(gen, kernel, window):
+    """K1 and K2 raise for a negative extent, before any launch."""
     kg = _keys(gen, 16, 16)
     args = (kg,) if kernel == "window_dedupe" else (kg, kg)
     before = kernels.LAUNCHES[kernel]
     with pytest.raises(ValueError):
         getattr(ops, kernel)(*args, *window)
     assert kernels.LAUNCHES[kernel] == before
+
+
+@pytest.mark.parametrize("window", [(5, 6), (4, 7), (8, 12), (16, 3), (0, 9), (7, 0),
+                                    (40, 700)])
+@pytest.mark.parametrize("h,w", [(720, 1280), (37, 53), (3, 5)])
+def test_window_kernels_take_wide_windows(gen, monkeypatch, h, w, window):
+    """K1 and K2 beyond 4 x 6 (the wide kernel; windows past the grid's
+    edge included), on dense keys, on grids shaped like the step's and on
+    sparse ones with words under sentinel keys: bit for bit their plain
+    versions, one launch each, no plain path run."""
+    grids = [(_keys(gen, h, w),
+              torch.randint(0, 2**20, (h, w), device="cuda", generator=gen, dtype=torch.int32)),
+             (_step_like_grid(gen, h, w, "banded"), None), _sparse_grid(gen, h, w, True)]
+    for kg, wg in grids:
+        wg = torch.where(kg == ops.INT_SENTINEL, 0, kg).to(torch.int32) if wg is None else wg
+        exp1 = ops.window_dedupe(kg, *window, plain=True)
+        exp2 = ops.window_prev_or(kg, wg, *window, plain=True)
+        before = dict(kernels.LAUNCHES)
+        with monkeypatch.context() as m:
+            _no_plain(m)
+            got1 = ops.window_dedupe(kg, *window)
+            got2 = ops.window_prev_or(kg, wg, *window)
+        assert kernels.LAUNCHES["window_dedupe"] == before["window_dedupe"] + 1
+        assert kernels.LAUNCHES["window_prev_or"] == before["window_prev_or"] + 1
+        assert torch.equal(got1, exp1)
+        assert torch.equal(got2, exp2)
 
 
 def _step_like_grid(gen, h, w, kind):
