@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from rt3d_torch import kernels
+from rt3d_torch.runtime import trace
 
 INT_SENTINEL = 2**31 - 1
 PAIR_SENTINEL = (INT_SENTINEL << 32) | INT_SENTINEL  # `pair_key` of two sentinels
@@ -197,7 +198,9 @@ def _run_starts(*sorted_keys: torch.Tensor) -> torch.Tensor:
     start = torch.zeros_like(sorted_keys[0], dtype=torch.bool)
     for k in sorted_keys:
         start[..., 1:] |= k[..., 1:] != k[..., :-1]
-    start[..., 0] = True
+    # the Python scalar reaches the card through a blocking copy
+    with trace.sync("ops.run_starts"):
+        start[..., 0] = True
     return start
 
 

@@ -34,6 +34,7 @@ import torch
 
 from rt3d_torch import kernels
 from rt3d_torch.geometry.ops import PointBuffer, scalar_like
+from rt3d_torch.runtime import trace
 
 FAR = 1.0e5
 BIG = 3.4e38
@@ -198,7 +199,8 @@ def sor_inlier_mask_slots(points: torch.Tensor, valid: torch.Tensor,
     present count back to the host once; empty slots keep all False."""
     s, cap, _ = points.shape
     if cap > EXACT_MAX_N:
-        present = valid.any(-1).nonzero().squeeze(-1)
+        with trace.sync("sor.slots_present"):
+            present = valid.any(-1).nonzero().squeeze(-1)
         keep = torch.zeros_like(valid)
         keep[present] = sor_inlier_mask_windowed(points[present], valid[present],
                                                  nb_neighbors, std_ratio)

@@ -31,6 +31,7 @@ from rt3d_torch.geometry.ops import (
     _quantize_packed2, _run_starts, packed2_fits, packed_cells, pair_key,
     segmented_or_scan, segmented_sum_scan,
 )
+from rt3d_torch.runtime import trace
 
 
 def _check_fits(voxel_size: float, bound_m: float, what: str) -> None:
@@ -101,7 +102,9 @@ def accumulate_voxels(acc: VoxelAccumulator, points: torch.Tensor, valid: torch.
     total_unique = emit.sum(dtype=torch.int32)
     # The branch is a host read of the count, once a frame: the JAX
     # package's `lax.cond` on the device.
-    if int(total_unique) <= cap:
+    with trace.sync("voxel_sets.accum_count"):
+        fits = int(total_unique) <= cap
+    if fits:
         # emitted keys are unique and ascending: a stable compaction keeps
         # their order, and the sentinel rows (weight 0) follow
         sel = torch.sort((~emit).to(torch.uint8), stable=True).indices[:cap]

@@ -50,6 +50,7 @@ from rt3d_torch.models.postprocess import (
 from rt3d_torch.models.yolo import (
     YoloSeg, cast_for_inference, init_random, load_weights,
 )
+from rt3d_torch.runtime import trace
 from rt3d_torch.tracking.botsort import (
     estimate_affine_gmc, estimate_translation_gmc, rescale_warp, translation_warp,
 )
@@ -212,27 +213,31 @@ class Pipeline:
         (C, D, emb_dim) when the tracker uses ReID, else None)."""
         p = self.cfg.model
         meta = self._meta()
-        with torch.no_grad():
+        with trace.span("detect.forward"), torch.no_grad():
             (box_l, cls_l, coeff_l, protos), feats = self.model.forward_with_feats(images)
-        boxes, scores = decode_predictions(self.model.input_hw, box_l, cls_l)
-        class_mask = torch.full((p.num_classes,), not p.class_filter, device=boxes.device)
-        for c in p.class_filter:  # one fill each, no host-to-device copy
-            class_mask[c] = True
-        dets = []
-        for b, s, c in zip(boxes, scores, coeff_l):
-            det = nms_fixed(b, s, c, conf_thresh=p.conf_thresh, iou_thresh=p.iou_thresh,
-                            max_det=p.max_detections, pre_topk=p.nms_pre_topk,
-                            class_mask=class_mask)
-            det = det.replace(boxes=boxes_to_original(det.boxes, meta))
-            if p.dedupe_center_px > 0:
-                det = suppress_center_duplicates(det, p.dedupe_center_px)
-            dets.append(det)
-        det = Detections.stack(dets)
+        with trace.span("detect.decode_nms"):
+            boxes, scores = decode_predictions(self.model.input_hw, box_l, cls_l)
+            class_mask = torch.full((p.num_classes,), not p.class_filter, device=boxes.device)
+            for c in p.class_filter:
+                # the Python scalar reaches the card through a blocking copy
+                with trace.sync("step.class_mask"):
+                    class_mask[c] = True
+            dets = []
+            for b, s, c in zip(boxes, scores, coeff_l):
+                det = nms_fixed(b, s, c, conf_thresh=p.conf_thresh, iou_thresh=p.iou_thresh,
+                                max_det=p.max_detections, pre_topk=p.nms_pre_topk,
+                                class_mask=class_mask)
+                det = det.replace(boxes=boxes_to_original(det.boxes, meta))
+                if p.dedupe_center_px > 0:
+                    det = suppress_center_duplicates(det, p.dedupe_center_px)
+                dets.append(det)
+            det = Detections.stack(dets)
         emb = None
         if self._use_reid:
-            p3 = feats[0].float().permute(0, 2, 3, 1)  # stride 8, channels last
-            emb = torch.stack([self._pooled_embeddings(p3[c], det.camera(c), meta)
-                               for c in range(p3.shape[0])])
+            with trace.span("detect.embed"):
+                p3 = feats[0].float().permute(0, 2, 3, 1)  # stride 8, channels last
+                emb = torch.stack([self._pooled_embeddings(p3[c], det.camera(c), meta)
+                                   for c in range(p3.shape[0])])
         return det, protos, emb
 
     def _pooled_embeddings(self, p3: torch.Tensor, det: Detections, meta) -> torch.Tensor:
@@ -290,15 +295,17 @@ class Pipeline:
         prev_gray = state.prev_gray
         warps = [None] * len(state.trackers)
         if self._use_gmc and images is not None:
-            gray = self._gray(images)
-            warps = self._gmc_warps(prev_gray, gray)
-            prev_gray = gray
+            with trace.span("track.gmc"):
+                gray = self._gray(images)
+                warps = self._gmc_warps(prev_gray, gray)
+                prev_gray = gray
         emb = det_emb if self._use_reid else None
         step = TRACKERS[t.tracker_type]
         new, ids = [], []
         for c, ts in enumerate(state.trackers):
-            ts, i = step(ts, det.camera(c), t, frame_rate=fps,
-                         det_emb=None if emb is None else emb[c], gmc_warp=warps[c])
+            with trace.span("track.camera"):
+                ts, i = step(ts, det.camera(c), t, frame_rate=fps,
+                             det_emb=None if emb is None else emb[c], gmc_warp=warps[c])
             new.append(ts)
             ids.append(i)
         return (PipelineState(trackers=tuple(new), prev_gray=prev_gray, accum=state.accum),
@@ -382,12 +389,14 @@ class Pipeline:
     def fuse(self, per_cam: ObjectSet) -> Tuple[ObjectSet, PointBuffer, torch.Tensor]:
         """Fold the cameras' object sets pairwise, then flatten (K3 inside)."""
         p = self.cfg.pipeline
-        fused = _camera_objects(per_cam, 0)
-        for c in range(1, self.cfg.rig.num_cameras):
-            fused = fuse_centroid(fused, _camera_objects(per_cam, c),
-                                  p.fusion_distance_threshold, p.sor_nb_neighbors,
-                                  p.sor_std_ratio, plain=self.plain_kernels)
-        flat, ovf = flatten_objects(fused, capacity=p.max_points_fused_flat)
+        with trace.span("fuse"):
+            fused = _camera_objects(per_cam, 0)
+            for c in range(1, self.cfg.rig.num_cameras):
+                fused = fuse_centroid(fused, _camera_objects(per_cam, c),
+                                      p.fusion_distance_threshold, p.sor_nb_neighbors,
+                                      p.sor_std_ratio, plain=self.plain_kernels)
+        with trace.span("fuse.flatten"):
+            flat, ovf = flatten_objects(fused, capacity=p.max_points_fused_flat)
         return fused, flat, ovf
 
     def workspace_sor(self, ws_all: PointBuffer) -> PointBuffer:
@@ -431,25 +440,36 @@ class Pipeline:
 
         `stage(name)`, when given, returns a context entered around each of
         the reference's stage groups, under its `timings.csv` name (the
-        driver's profile mode times them); it does not change the outputs."""
-        stage = stage or _no_stage
-        with torch.no_grad():
-            with stage("YOLO11 Inference"):
-                images = self.preprocess(rgb)
+        driver's profile mode times them); it does not change the outputs.
+        A step handed `stage` is traced (`rt3d_torch.runtime.trace`): the
+        groups are spans under the root `step`, the stages spans under
+        them."""
+        span = trace.span
+        with torch.no_grad(), trace.step(stage is not None):
+            stage = stage or _no_stage
+            with stage("YOLO11 Inference"), span("YOLO11 Inference"):
+                with span("preprocess"):
+                    images = self.preprocess(rgb)
                 det, protos, emb = self.detect(images)
                 state, ids = self.track(state, det, det_emb=emb, images=images)
-            with stage("Mask Processing"):
-                masks = self.masks(protos, det)
-                per_cam, obj_ovf = self.object_clouds(depth, masks, det, ids, calib)
-            with stage("Point Cloud Processing"):
-                ws, ws_ovf = self.workspace_clouds(depth, calib)
-                ws_all = self.workspace_sor(PointBuffer(points=ws.points.reshape(-1, 3),
-                                                        valid=ws.valid.reshape(-1)))
-            with stage("Point Cloud Fusion"):
+            with stage("Mask Processing"), span("Mask Processing"):
+                with span("masks"):
+                    masks = self.masks(protos, det)
+                with span("object_clouds"):
+                    per_cam, obj_ovf = self.object_clouds(depth, masks, det, ids, calib)
+            with stage("Point Cloud Processing"), span("Point Cloud Processing"):
+                with span("workspace_clouds"):
+                    ws, ws_ovf = self.workspace_clouds(depth, calib)
+                with span("workspace_sor"):
+                    ws_all = self.workspace_sor(PointBuffer(points=ws.points.reshape(-1, 3),
+                                                            valid=ws.valid.reshape(-1)))
+            with stage("Point Cloud Fusion"), span("Point Cloud Fusion"):
                 fused, flat, flat_ovf = self.fuse(per_cam)
-            with stage("Subtraction"):
-                ws_out = self.subtract(ws_all, flat)
-                state, ws_out, acc_ovf = self.accumulate(state, ws_out)
+            with stage("Subtraction"), span("Subtraction"):
+                with span("subtract"):
+                    ws_out = self.subtract(ws_all, flat)
+                with span("accumulate"):
+                    state, ws_out, acc_ovf = self.accumulate(state, ws_out)
             overflow = obj_ovf.sum(dtype=torch.int32) + ws_ovf.sum(dtype=torch.int32) \
                 + flat_ovf.to(torch.int32) + acc_ovf
         return state, FrameOutputs(

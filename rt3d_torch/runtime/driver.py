@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from rt3d_torch.pipeline.step import FrameOutputs, Pipeline, index_outputs
+from rt3d_torch.runtime import trace
 from rt3d_torch.runtime.timing import TimingLog
 
 
@@ -176,10 +177,11 @@ class PipelineDriver:
     def _run_frame_loop(self, uploader, stream, source, num_frames, warmup, on_frame,
                         fetch_outputs) -> DriverResult:
         def fetch(idx):
-            pkt = source.get(idx)
-            if np.asarray(pkt.status).any():
-                return None, True
-            return self._upload((pkt.rgb, pkt.depth), stream), False
+            with trace.span("upload"):
+                pkt = source.get(idx)
+                if np.asarray(pkt.status).any():
+                    return None, True
+                return self._upload((pkt.rgb, pkt.depth), stream), False
 
         in_flight = deque(uploader.submit(fetch, j)
                           for j in range(min(self.pipeline_depth, num_frames)))
@@ -263,12 +265,13 @@ class PipelineDriver:
         k = self.frames_per_dispatch
 
         def fetch_chunk(start):
-            pkts = [source.get(j) for j in range(start, min(start + k, num_frames))]
-            good = np.asarray([not np.asarray(p.status).any() for p in pkts], bool)
-            if not good.any():
-                return None, good
-            arrays = (np.stack([p.rgb for p in pkts]), np.stack([p.depth for p in pkts]))
-            return self._upload(arrays, stream), good
+            with trace.span("upload"):
+                pkts = [source.get(j) for j in range(start, min(start + k, num_frames))]
+                good = np.asarray([not np.asarray(p.status).any() for p in pkts], bool)
+                if not good.any():
+                    return None, good
+                arrays = (np.stack([p.rgb for p in pkts]), np.stack([p.depth for p in pkts]))
+                return self._upload(arrays, stream), good
 
         starts = list(range(0, num_frames, k))
         in_flight = deque(uploader.submit(fetch_chunk, s)

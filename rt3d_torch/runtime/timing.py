@@ -31,11 +31,8 @@ STAGES = (
 
 class TimingLog:
     def __init__(self, fps_log_path: Optional[str] = None,
-                 timings_path: Optional[str] = None,
-                 fps_window: int = 10):
+                 timings_path: Optional[str] = None):
         self.values: Dict[str, List[float]] = {s: [] for s in STAGES}
-        self.fps_values: List[float] = []
-        self.fps_window = fps_window
         self.fps_log_path = fps_log_path
         self.timings_path = timings_path
         if fps_log_path:
@@ -58,19 +55,13 @@ class TimingLog:
 
         return _Span()
 
-    def end_iteration(self, total_seconds: float) -> float:
-        """Record the frame total; returns the moving-average FPS (the
-        10-sample window of `vision_pipeline_utils.py:341-343`)."""
+    def end_iteration(self, total_seconds: float) -> None:
+        """Record the frame total and append its FPS to `fps_log.csv`."""
         self.add("Total Time per Iteration", total_seconds)
         fps = 1.0 / max(total_seconds, 1e-9)
-        self.fps_values.append(fps)
-        if len(self.fps_values) > self.fps_window:
-            self.fps_values.pop(0)
-        avg = sum(self.fps_values) / len(self.fps_values)
         if self.fps_log_path:
             with open(self.fps_log_path, "a", newline="") as f:
                 csv.writer(f).writerow([time.time(), fps])
-        return avg
 
     def write_timings(self) -> None:
         """Write the reference's `timings.csv` schema: one row per stage,

@@ -9,10 +9,13 @@ Three solvers, as `TrackerConfig.assignment` names them:
   cheapest pair one at a time. The loop stops when a round claims nothing;
   that test reads one flag back from the device per round.
 * ``refined``: greedy, then `min(R, C)` rounds of the best pair swap and the
-  best move into a free column (`_refine_matching`), all on the device.
+  best move into a free column (`_refine_matching`), on the device but for
+  its 0-dim index tensors, which indexing reads back: 12 a round.
 * ``exact``: the shortest-augmenting-path Hungarian method (`hungarian`)
   on the square padded matrix, with the JAX package's f32 potentials. Its
-  loops read the device back once an iteration: an off-line mode.
+  loops read the device back three times an iteration: an off-line mode.
+
+Every read-back goes through `rt3d_torch.runtime.trace.sync`.
 
 Infeasible entries are those at or above the threshold; unmatched rows and
 columns are reported as -1.
@@ -24,6 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from rt3d_torch.runtime import trace
 
 BIG = 1e3    # finite infeasible cost of the exact solver's padded matrix
 _INF = 1e18
@@ -50,18 +55,25 @@ def hungarian(cost: torch.Tensor) -> torch.Tensor:
         minv = torch.full((n + 1,), _INF, dtype=torch.float32, device=dev)
         used = torch.zeros(n + 1, dtype=torch.bool, device=dev)
         way = torch.zeros(n + 1, dtype=torch.long, device=dev)
-        p[0] = i
+        # a Python scalar written into a CUDA tensor goes through a blocking copy
+        with trace.sync("assignment.exact_start"):
+            p[0] = i
         j0 = 0
-        while int(p[j0]) != 0:
-            used[j0] = True
-            i0 = p[j0]
+        while True:
+            with trace.sync("assignment.exact_row"):
+                i0 = int(p[j0])
+            if i0 == 0:
+                break
+            with trace.sync("assignment.exact_used"):
+                used[j0] = True
             cur = a[i0] - u[i0] - v
             upd = ~used & (cur < minv)
             minv = torch.where(upd, cur, minv)
             way = torch.where(upd, j0, way)
             masked = torch.where(used, inf, minv)
             masked[0] = inf
-            j1 = int(torch.argmin(masked))
+            with trace.sync("assignment.exact_argmin"):
+                j1 = int(torch.argmin(masked))
             delta = masked[j1]
             step = torch.where(used, delta, 0.0)
             # p holds the dummy row 0 many times: each column adds its own
@@ -70,13 +82,16 @@ def hungarian(cost: torch.Tensor) -> torch.Tensor:
             v = v - step
             minv = torch.where(used, minv, minv - delta)
             j0 = j1
-        way_h = way.tolist()
-        p_h = p.tolist()
+        with trace.sync("assignment.exact_way"):
+            way_h = way.tolist()
+        with trace.sync("assignment.exact_rows"):
+            p_h = p.tolist()
         while j0 != 0:
             j1 = way_h[j0]
             p_h[j0] = p_h[j1]
             j0 = j1
-        p = torch.tensor(p_h, dtype=torch.long, device=dev)
+        with trace.sync("assignment.exact_upload"):
+            p = torch.tensor(p_h, dtype=torch.long, device=dev)
     row_for_col = p[1:] - 1
     col_for_row = torch.zeros(n, dtype=torch.int32, device=dev)
     col_for_row[row_for_col] = torch.arange(n, dtype=torch.int32, device=dev)
@@ -127,16 +142,25 @@ def solve_matching_greedy(cost: torch.Tensor, thresh: float
         hit = torch.zeros(c + 1, dtype=torch.bool, device=dev).scatter(
             0, tgt, mutual)[:c]
         cm = torch.where(mutual[:, None] | hit[None, :], big, cm)
-        if not bool(mutual.any()):
-            break
+        with trace.sync("assignment.greedy_round"):
+            if not bool(mutual.any()):
+                break
     return col_of_row, row_of_col
 
 
-def _set(x: torch.Tensor, i, val) -> torch.Tensor:
-    """``x.at[i].set(val)`` for a 0-dim index tensor."""
+def _set(x: torch.Tensor, i: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """``x.at[i].set(val)`` for a 0-dim index tensor, which indexing reads
+    back to the host."""
     y = x.clone()
-    y[i] = val
+    with trace.sync("assignment.refine_index"):
+        y[i] = val
     return y
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-dim index tensor, read back to the host as `_set`'s."""
+    with trace.sync("assignment.refine_index"):
+        return x[i]
 
 
 def _refine_matching(cost: torch.Tensor, thresh: float, col_of_row: torch.Tensor,
@@ -163,8 +187,8 @@ def _refine_matching(cost: torch.Tensor, thresh: float, col_of_row: torch.Tensor
                                  ci_ck + ci_ck.T - cur[:, None] - cur[None, :], 0.0)
         flat = torch.argmin(swap_delta)
         si, sk = flat // r, flat % r
-        do = swap_delta[si, sk] < -1e-7
-        ci, ck = col_of_row[si], col_of_row[sk]
+        do = _at(swap_delta.reshape(-1), flat) < -1e-7
+        ci, ck = _at(col_of_row, si), _at(col_of_row, sk)
         col_sw = _set(_set(col_of_row, si, ck), sk, ci)
         row_sw = _set(_set(row_of_col, torch.clamp(ci, 0, c - 1), sk),
                       torch.clamp(ck, 0, c - 1), si)
@@ -181,9 +205,10 @@ def _refine_matching(cost: torch.Tensor, thresh: float, col_of_row: torch.Tensor
             torch.where(free[None, :] & (cm < big), cm - big * 0.5, 0.0))
         flat = torch.argmin(move_delta)
         mi, mj = flat // c, flat % c
-        do = move_delta[mi, mj] < -1e-7
-        old = col_of_row[mi]
-        row_mv = torch.where(old >= 0, _set(row_of_col, torch.clamp(old, 0, c - 1), -1),
+        do = _at(move_delta.reshape(-1), flat) < -1e-7
+        old = _at(col_of_row, mi)
+        row_mv = torch.where(old >= 0, _set(row_of_col, torch.clamp(old, 0, c - 1),
+                                            rows.new_full((), -1)),
                              row_of_col)
         row_mv = _set(row_mv, mj, mi)
         col_mv = _set(col_of_row, mi, mj)

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from rt3d_torch.geometry.ops import scalar_like
+from rt3d_torch.runtime import trace
 
 
 def embedding_distance(track_emb: torch.Tensor, det_emb: torch.Tensor) -> torch.Tensor:
@@ -100,8 +101,9 @@ def estimate_translation_gmc(prev_gray: torch.Tensor, cur_gray: torch.Tensor,
 
 
 def identity_warp(device="cuda") -> torch.Tensor:
-    return torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=torch.float32,
-                        device=device)
+    with trace.sync("botsort.identity_upload"):
+        return torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=torch.float32,
+                            device=device)
 
 
 def translation_warp(shift_xy: torch.Tensor) -> torch.Tensor:
@@ -144,14 +146,17 @@ def estimate_affine_gmc(prev_gray: torch.Tensor, cur_gray: torch.Tensor,
     targets = centers + shifts
     x1 = torch.cat([centers, torch.ones((centers.shape[0], 1), device=dev)], dim=-1)
     w0 = torch.clamp_min(peaks, 0.0)
-    prior = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]], device=dev)
+    with trace.sync("botsort.prior_upload"):
+        prior = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]], device=dev)
     eye = torch.eye(3, device=dev)
 
     def solve(weights):
         lam = prior_strength * weights.sum() + 1e-6
         n = x1.T @ (weights[:, None] * x1) + lam * eye
         rhs = x1.T @ (weights[:, None] * targets) + lam * prior
-        return torch.linalg.solve(n, rhs)
+        # torch.linalg.solve reads its error flag back to the host
+        with trace.sync("botsort.gmc_solve"):
+            return torch.linalg.solve(n, rhs)
 
     coef = solve(w0)
     resid = ((x1 @ coef - targets) ** 2).sum(-1)
@@ -165,7 +170,8 @@ def rescale_warp(warp: torch.Tensor, scale: float, offset_xy) -> torch.Tensor:
     p_orig + offset) in original pixels: b = (A offset + b - offset) /
     scale."""
     a, b = warp[:, :2], warp[:, 2]
-    o = torch.tensor(offset_xy, dtype=torch.float32, device=warp.device)
+    with trace.sync("botsort.offset_upload"):
+        o = torch.tensor(offset_xy, dtype=torch.float32, device=warp.device)
     b_o = (a @ o + b - o) / scalar_like(scale, b)
     return torch.cat([a, b_o[:, None]], dim=1)
 
