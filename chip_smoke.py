@@ -931,7 +931,7 @@ def int64_conv(torch, xq, conv):
 
 def check_int8_sums(torch, run):
     """For each conv of `INT8_CONVS`, its input on the step's first frame
-    (the step's own preprocess and detect, recorded by a forward
+    (the step's own preprocess and detect, eager, recorded by a forward
     pre-hook), quantized on the card: the card's int32 sum equals the
     CPU's int64 sum of the same int8 tensors, bit for bit."""
     from rt3d_torch.models.yolo import QConv
@@ -944,7 +944,9 @@ def check_int8_sums(torch, run):
         handles.append(conv.register_forward_pre_hook(
             lambda m, a, path=path: seen.setdefault(path, a[0])))
     try:
-        with torch.no_grad():
+        # with autograd on, detect runs eagerly, so the hooks fire; its
+        # CUDA graph (autograd off) replays the same kernels without them
+        with torch.enable_grad():
             pipe.detect(pipe.preprocess(run["frames"][0][0]))
     finally:
         for h in handles:

@@ -199,6 +199,7 @@ def quantize_model(model: YoloSeg, flat: Dict[str, np.ndarray],
         sd = state_dict_from_npz({f"{path}/{leaf}": flat[f"{path}/{leaf}"]
                                   for leaf in ("kernel_q8", "kernel_scale", "act_scale", "bias")})
         conv.load_state_dict({k[len(name) + 1:]: v for k, v in sd.items()}, strict=True)
+    model.generation += 1
     return flat
 
 

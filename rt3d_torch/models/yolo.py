@@ -371,6 +371,11 @@ class YoloSeg(nn.Module):
         self.num_mask_coeffs = num_mask_coeffs
         self.input_hw = tuple(input_hw)
         self._compute_dtype = None
+        # raised by whatever swaps modules or parameter storage or changes
+        # the compute dtype (`cast_for_inference`, `set_compute_dtype`,
+        # `load_weights`, `quant.quantize_model`): a CUDA graph of the
+        # forward captured at an older generation is stale
+        self.generation = 0
         depth, _, _ = SCALES[variant]
         w = self._w
 
@@ -424,6 +429,7 @@ class YoloSeg(nn.Module):
         (`core.set_compute_dtype`): training keeps f32 parameters and
         computes in bf16. None goes back to the parameters' dtype."""
         self._compute_dtype = dtype
+        self.generation += 1
         return self
 
     def _layer(self, name: str) -> nn.Module:
@@ -517,6 +523,7 @@ def load_weights(model: YoloSeg, path: str) -> YoloSeg:
 
         quantize_model(model, flat)
     model.load_state_dict(state_dict_from_npz(flat), strict=True)
+    model.generation += 1
     return model
 
 
@@ -539,5 +546,7 @@ def cast_for_inference(model: YoloSeg, dtype: torch.dtype,
                        device: torch.device | str) -> YoloSeg:
     """Counterpart of `core.cast_params_for_inference`: every parameter in
     the compute dtype once, at load time, channels-last, on `device`."""
-    return model.to(device=device, dtype=dtype,
-                    memory_format=torch.channels_last).eval().requires_grad_(False)
+    model = model.to(device=device, dtype=dtype,
+                     memory_format=torch.channels_last).eval().requires_grad_(False)
+    model.generation += 1
+    return model

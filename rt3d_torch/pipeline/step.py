@@ -14,6 +14,10 @@ with `workspace_accumulate`, the fold of the subtracted workspace into the
 persistent voxel accumulator, whose voxels above `accum_min_weight` are
 published as the workspace.
 
+On the card, with autograd off, forward, decode and NMS replay one CUDA
+graph (`Pipeline.detect`), bit for bit the eager path's kernels; the CPU
+runs them eagerly.
+
 Inputs and outputs keep the JAX package's layouts: rgb (C, H, W, 3) uint8
 BGR and depth (C, H, W) f32 on the pipeline's device, per-camera results
 with a leading camera axis. ByteTrack ignores the `with_reid` and `gmc`
@@ -23,8 +27,8 @@ flags, as the JAX package does.
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass, fields
-from typing import Callable, ContextManager, Optional, Sequence, Tuple
+from dataclasses import dataclass, field, fields
+from typing import Callable, ContextManager, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,6 +159,54 @@ def _camera_objects(objs: ObjectSet, c: int) -> ObjectSet:
                      objs.present[c], objs.track_id[c])
 
 
+def class_mask(num_classes: int, class_filter: Sequence[int], device) -> torch.Tensor:
+    """(num_classes,) bool: the classes `class_filter` keeps, all of them
+    when it is empty. Built on the device from comparisons, so no Python
+    scalar is copied to it."""
+    ids = torch.arange(num_classes, device=device)
+    mask = torch.full((num_classes,), not class_filter, dtype=torch.bool, device=device)
+    for c in class_filter:
+        mask |= ids == c
+    return mask
+
+
+def _graph_eligible(images: torch.Tensor) -> bool:
+    """Whether `Pipeline.detect` replays its CUDA graph for `images`: on
+    the card, with autograd off."""
+    return images.is_cuda and not torch.is_grad_enabled()
+
+
+class _DetectGraph:
+    """`Pipeline._detect_core` captured once in a CUDA graph, for one
+    model input's shape, strides, dtype and device and one generation of
+    the model (`YoloSeg.generation`): `key`. Its input is one static
+    buffer; `replay` copies the images into it and replays the graph on
+    the current stream. What `replay` returns lives in the graph's memory
+    and the next replay overwrites it."""
+
+    def __init__(self, pipe: "Pipeline", images: torch.Tensor, key: tuple):
+        self.key = key
+        self.input = torch.empty_like(images)
+        self.input.copy_(images)
+        # the side stream starts behind the current one, which waits on
+        # the uploader's event; the warm-up on it makes the library
+        # handles, workspaces and cuDNN plans the capture then reuses
+        side = torch.cuda.Stream(images.device)
+        side.wait_stream(torch.cuda.current_stream(images.device))
+        with torch.cuda.stream(side):
+            pipe._detect_core(self.input)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the driver's uploader thread goes on copying frames
+        # on its own stream while this thread captures
+        with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+            self.outputs = pipe._detect_core(self.input)
+
+    def replay(self, images: torch.Tensor):
+        self.input.copy_(images)
+        self.graph.replay()
+        return self.outputs
+
+
 @dataclass
 class Pipeline:
     """Config, model and device. ``plain_kernels=True`` runs every kernel's
@@ -164,6 +216,12 @@ class Pipeline:
     model: YoloSeg
     device: torch.device
     plain_kernels: bool = False
+    _detect_graph: Optional[_DetectGraph] = field(default=None, init=False, repr=False,
+                                                  compare=False)
+
+    def __post_init__(self):
+        m = self.cfg.model
+        self.class_mask = class_mask(m.num_classes, m.class_filter, self.device)
 
     @property
     def _use_reid(self) -> bool:
@@ -210,35 +268,67 @@ class Pipeline:
                ) -> Tuple[Detections, torch.Tensor, Optional[torch.Tensor]]:
         """Forward + decode + NMS. Returns (detections with boxes in original
         pixels, camera axis leading; protos (C, hp, wp, nm); embeddings
-        (C, D, emb_dim) when the tracker uses ReID, else None)."""
-        p = self.cfg.model
-        meta = self._meta()
-        with trace.span("detect.forward"), torch.no_grad():
-            (box_l, cls_l, coeff_l, protos), feats = self.model.forward_with_feats(images)
-        with trace.span("detect.decode_nms"):
-            boxes, scores = decode_predictions(self.model.input_hw, box_l, cls_l)
-            class_mask = torch.full((p.num_classes,), not p.class_filter, device=boxes.device)
-            for c in p.class_filter:
-                # the Python scalar reaches the card through a blocking copy
-                with trace.sync("step.class_mask"):
-                    class_mask[c] = True
-            dets = []
-            for b, s, c in zip(boxes, scores, coeff_l):
-                det = nms_fixed(b, s, c, conf_thresh=p.conf_thresh, iou_thresh=p.iou_thresh,
-                                max_det=p.max_detections, pre_topk=p.nms_pre_topk,
-                                class_mask=class_mask)
-                det = det.replace(boxes=boxes_to_original(det.boxes, meta))
-                if p.dedupe_center_px > 0:
-                    det = suppress_center_duplicates(det, p.dedupe_center_px)
-                dets.append(det)
+        (C, D, emb_dim) when the tracker uses ReID, else None).
+
+        On the card with autograd off, forward, decode and NMS
+        (`_detect_core`) replay one CUDA graph, captured on the first such
+        call and again whenever the images' shape, strides, dtype or device
+        or the model's generation change. The detections are then stacked
+        out of the graph's memory, so they stay as they are when the next
+        call replays it; the protos stay in it, valid until the next call.
+        The embeddings are computed after the replay, eagerly. A replay
+        runs no Python: the model's forward hooks fire only on the eager
+        path, so a caller that reads activations through hooks calls the
+        model itself (as `quant.collect_act_scales` does) or `detect` with
+        autograd on."""
+        if _graph_eligible(images):
+            with trace.span("detect.graph"):
+                key = (images.shape, images.stride(), images.dtype, images.device,
+                       self.model, self.model.generation)
+                graph = self._detect_graph
+                if graph is None or graph.key != key:
+                    self._detect_graph = None  # its memory goes back before the capture
+                    # the capture synchronizes the device
+                    with trace.sync("step.detect_capture"):
+                        graph = self._detect_graph = _DetectGraph(self, images, key)
+                    trace.count("detect_graph_captures")
+                dets, protos, feats = graph.replay(images)
+                trace.count("detect_graph_replays")
+                det = Detections.stack(dets)
+        else:
+            with torch.no_grad():
+                dets, protos, feats = self._detect_core(images)
             det = Detections.stack(dets)
         emb = None
         if self._use_reid:
+            meta = self._meta()
             with trace.span("detect.embed"):
                 p3 = feats[0].float().permute(0, 2, 3, 1)  # stride 8, channels last
                 emb = torch.stack([self._pooled_embeddings(p3[c], det.camera(c), meta)
                                    for c in range(p3.shape[0])])
         return det, protos, emb
+
+    def _detect_core(self, images: torch.Tensor
+                     ) -> Tuple[List[Detections], torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """The YOLO forward, decode and per-camera NMS: (a camera's
+        detections each, protos, the neck features). Static shapes, no host
+        read: what `detect` captures."""
+        p = self.cfg.model
+        meta = self._meta()
+        with trace.span("detect.forward"):
+            (box_l, cls_l, coeff_l, protos), feats = self.model.forward_with_feats(images)
+        with trace.span("detect.decode_nms"):
+            boxes, scores = decode_predictions(self.model.input_hw, box_l, cls_l)
+            dets = []
+            for b, s, c in zip(boxes, scores, coeff_l):
+                det = nms_fixed(b, s, c, conf_thresh=p.conf_thresh, iou_thresh=p.iou_thresh,
+                                max_det=p.max_detections, pre_topk=p.nms_pre_topk,
+                                class_mask=self.class_mask)
+                det = det.replace(boxes=boxes_to_original(det.boxes, meta))
+                if p.dedupe_center_px > 0:
+                    det = suppress_center_duplicates(det, p.dedupe_center_px)
+                dets.append(det)
+        return dets, protos, feats
 
     def _pooled_embeddings(self, p3: torch.Tensor, det: Detections, meta) -> torch.Tensor:
         """Appearance features in place of a ReID network: the stride-8 neck

@@ -13,7 +13,9 @@ Everything stays in memory, one record a traced step, in a ring of the last
   that times the wait; `records()` counts them by site;
 * garbage collections inside the step: generation, start and end, from a
   `gc.callbacks` hook that is installed only while tracing is on;
-* the step's kernel launches, the deltas of `kernels.LAUNCHES`.
+* the step's kernel launches, the deltas of `kernels.LAUNCHES`;
+* the step's counts of the events in `COUNTS`, each from `count(name)`:
+  the replays and the captures of `Pipeline.detect`'s CUDA graph.
 
 Tracing is on for a step that `Pipeline.step` is handed a `stage` hook for
 (the driver's profile mode, a benchmark's traced run), and for every step
@@ -43,6 +45,8 @@ from rt3d_torch import kernels
 
 # steps the ring keeps: 51 s at 80 frames a second
 RING_STEPS = 4096
+# what `count` counts, each in every record
+COUNTS = ("detect_graph_replays", "detect_graph_captures")
 
 ON = False       # tracing on now: the one flag every site tests
 _enabled = False  # `enable()` was called
@@ -65,13 +69,14 @@ class Span(NamedTuple):
 
 
 class _Record:
-    __slots__ = ("step", "spans", "gc", "launches", "_launches0")
+    __slots__ = ("step", "spans", "gc", "launches", "counts", "_launches0")
 
     def __init__(self, step: int):
         self.step = step
         self.spans: List[list] = []  # [name, parent, thread, start_ns, end_ns]
         self.gc: List[tuple] = []    # (generation, start_ns, end_ns)
         self.launches: Dict[str, int] = {}
+        self.counts: Dict[str, int] = dict.fromkeys(COUNTS, 0)
         self._launches0 = dict(kernels.LAUNCHES)
 
 
@@ -200,6 +205,13 @@ def sync(site: str):
     return _Span("sync." + site)
 
 
+def count(name: str) -> None:
+    """One more `name` (one of `COUNTS`) in the record of the step
+    running now; nothing outside a traced step."""
+    if ON and _open is not None:
+        _open.counts[name] += 1
+
+
 # -- the operator's use -------------------------------------------------------
 
 
@@ -226,12 +238,13 @@ def records() -> List[Dict]:
     """The ring's step records, oldest first, each a dict: `step` (the
     traced step's index), `spans` ([`Span`], in the order they opened),
     `host_syncs` ({site: count} of the `sync.<site>` spans), `gc`
-    ([(generation, start_ns, end_ns)]) and `launches` ({kernel counter:
-    launches in the step}). Spans still open have `end_ns` 0."""
+    ([(generation, start_ns, end_ns)]), `launches` ({kernel counter:
+    launches in the step}) and `counts` ({name: count} of every name in
+    `COUNTS`). Spans still open have `end_ns` 0."""
     out = []
     for rec in list(_ring):
         spans = [Span(n, rec.step, p, t, a, b) for n, p, t, a, b in list(rec.spans)]
         syncs = collections.Counter(s.name[5:] for s in spans if s.name.startswith("sync."))
         out.append(dict(step=rec.step, spans=spans, host_syncs=dict(syncs), gc=list(rec.gc),
-                        launches=dict(rec.launches)))
+                        launches=dict(rec.launches), counts=dict(rec.counts)))
     return out

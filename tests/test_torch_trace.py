@@ -24,9 +24,11 @@ from bench_port import spec
 from rt3d_torch import config
 from rt3d_torch.io import SyntheticSource
 from rt3d_torch.models.postprocess import Detections
+from rt3d_torch.pipeline import step as step_mod
 from rt3d_torch.pipeline.step import build_pipeline
 from rt3d_torch.runtime import trace
 from rt3d_torch.tracking.bytetrack import bytetrack_init, bytetrack_step
+from tests.test_torch_detect_graph import StandInGraph
 from tests.tiny import tiny_config
 
 H, W = 240, 320
@@ -159,6 +161,35 @@ def test_spans_nest_under_their_parents(runs):
         assert names.count("track.camera") == 2
         assert names.count("sync.assignment.greedy_round") == rec["host_syncs"][
             "assignment.greedy_round"]
+        # the CPU's detect is eager
+        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0}
+
+
+def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
+    """Detect's graph path, taken on the CPU through the stand-in for the
+    captured graph of `tests/test_torch_detect_graph.py`: the first traced
+    step captures and replays, the next only replay; the replay is the span
+    `detect.graph` under `YOLO11 Inference`, the capture a sync inside it."""
+    monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: not torch.is_grad_enabled())
+    monkeypatch.setattr(step_mod, "_DetectGraph", StandInGraph)
+    pipe = build_pipeline(small_config(src.cameras()), weights=WEIGHTS, device="cpu")
+    trace.enable()
+    state, calib = pipe.init_state(), pipe.calib()
+    for rgb, depth in frames + frames[:1]:
+        state, _ = pipe.step(state, rgb, depth, calib)
+    recs = trace.records()
+    assert [r["counts"] for r in recs] == [
+        {"detect_graph_replays": 1, "detect_graph_captures": 1}] + [
+        {"detect_graph_replays": 1, "detect_graph_captures": 0}] * 2
+    assert [r["host_syncs"].get("step.detect_capture", 0) for r in recs] == [1, 0, 0]
+    for rec in recs:
+        spans = rec["spans"]
+        graph = [s for s in spans if s.name == "detect.graph"]
+        assert len(graph) == 1 and spans[graph[0].parent].name == "YOLO11 Inference"
+        for s in spans:
+            if s.name.startswith("detect.") and s.name != "detect.graph":
+                # the stand-in's core runs inside the replay's span
+                assert spans[s.parent].name in ("detect.graph", "sync.step.detect_capture")
 
 
 def test_botsort_spans_nest_and_count_their_syncs(src, frames):
@@ -383,3 +414,30 @@ def test_readers_take_the_windows_steps_by_time(metric, value, monkeypatch):
     assert read(record) == pytest.approx(value)
     monkeypatch.setattr(trace, "records", lambda: steps[3:])
     assert read(record) is None
+
+
+def test_detect_ms_counts_the_graph_span_once(monkeypatch):
+    """Steps whose detect replays the graph: `detect.graph` in place of the
+    forward and decode spans, with the capture's sync and the eager spans it
+    runs nested inside (the capturing step), counted once beside
+    `preprocess`."""
+    t0 = 10**12
+    steps = []
+    for i in range(6):
+        rec = synthetic_step(i, t0 + 20 * MS * i, 2 if i in (2, 3) else 1)
+        spans, u = rec["spans"], (2 if i in (2, 3) else 1) * MS
+        graph = trace.Span("detect.graph", i, 1, "MainThread", spans[3].start_ns,
+                           spans[4].end_ns)
+        inner = [trace.Span("sync.step.detect_capture", i, 3, "MainThread", graph.start_ns,
+                            graph.start_ns + u),
+                 trace.Span("detect.forward", i, 4, "MainThread", graph.start_ns,
+                            graph.start_ns + u // 2),
+                 trace.Span("detect.decode_nms", i, 3, "MainThread", graph.start_ns + u,
+                            graph.end_ns)]
+        # the track spans keep their parents (indices 1, 5 and 7 stay where they were)
+        rec["spans"] = spans[:3] + [graph, inner[0]] + spans[5:] + inner[1:]
+        steps.append(rec)
+    monkeypatch.setattr(trace, "records", lambda: steps)
+    record = bench_record([40, 41], t0 + 40 * MS, t0 + 80 * MS)
+    assert spec.metric_reader("detect_ms")(record) == pytest.approx(8.0)
+    assert spec.metric_reader("host_sync_ms")(record) == pytest.approx(2.4)
