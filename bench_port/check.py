@@ -26,17 +26,20 @@ the reference's own initial state), and so is every state the step hands
 on (the tracker and accumulator state after each compared frame).
 
 Voxels are compared as sets of integer lattice keys (round(p / voxel)).
+
+The reference pipeline is the configuration's architecture's
+(`arch/<name>.py`, `reference_pipeline`); `ReferencePipeline` below is
+what the stages call on it. An architecture may add numbers of its own
+(`ExtraNumbers`), which join those that a cell's limits may name.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import statistics
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Protocol, Tuple
 
 import torch
-
-from bench_port import spec as spec_mod
 
 IOU_PAIR = 0.5
 # relative L2 distance from the reference's mask coefficients beyond which a
@@ -150,19 +153,55 @@ class Tally:
         return out
 
 
-def reference_pipeline(config: Dict, cameras, device, weights: str):
-    """The reference's pipeline for configuration `config`: float32, TF32
-    off, the weights read from the same file as the program's."""
+class ReferencePipeline(Protocol):
+    """What `judge_frame` calls on an architecture's plain reference. The
+    state and outputs it takes and gives are dataclasses of tensors whose
+    classes carry the names of the program's (`compare` maps one to the
+    other by name)."""
+
+    cfg: Any       # the stated config; `cfg.pipeline.voxel_size` is read
+    device: Any
+
+    def calib(self): ...
+    def init_state(self): ...
+    def preprocess(self, rgb: torch.Tensor) -> torch.Tensor: ...
+
+    def detect(self, images: torch.Tensor) -> Tuple[Any, Any, Any]:
+        """(detections, mask context, ReID embeddings or None). The mask
+        context is opaque to the check and handed back to `masks`: YOLO's
+        prototypes, or what a mask model needs of the image."""
+
+    def track(self, state, det, det_emb=None, images=None) -> Tuple[Any, torch.Tensor]: ...
+    def masks(self, ctx, det) -> torch.Tensor: ...
+    def object_clouds(self, depth, masks, det, track_ids, calib) -> Tuple[Any, Any]: ...
+    def fuse(self, per_cam) -> Tuple[Any, Any, Any]: ...
+    def workspace_clouds(self, depth, calib) -> Tuple[Any, Any]: ...
+    def workspace_sor(self, ws_all): ...
+    def subtract(self, workspace, objects_flat): ...
+    def accumulate(self, state, ws_out) -> Tuple[Any, Any, Any]: ...
+
+
+class ExtraNumbers(Protocol):
+    """An architecture's own compared numbers (`arch/<name>.py` may define
+    a class `ExtraNumbers` of this shape): `add` once a compared frame,
+    after the mask stage, with the reference, its mask context, its masks
+    of the program's detections and the program's outputs of the frame."""
+
+    def add(self, ref: ReferencePipeline, ctx, masks, outputs) -> None: ...
+    def numbers(self) -> Dict[str, float]: ...
+
+
+def reference_pipeline(arch, config: Dict, cameras, device, weights: str) -> ReferencePipeline:
+    """Architecture `arch`'s reference pipeline for configuration `config`:
+    float32, TF32 off, the weights read from the same file as the
+    program's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from bench_port.reference import config as rconfig
-    from bench_port.reference.pipeline.step import build_pipeline
-
-    cfg = spec_mod.make_config(rconfig, config, cameras, dtype="float32")
-    return build_pipeline(cfg, weights=weights, device=device)
+    return arch.reference_pipeline(config, cameras, device, weights)
 
 
-def judge_frame(ref, tally: Tally, kept, rgb, depth, classes) -> None:
+def judge_frame(ref: ReferencePipeline, tally: Tally, kept, rgb, depth, classes,
+                extra: ExtraNumbers = None) -> None:
     """One compared frame, stage by stage."""
     from bench_port.reference.geometry.ops import PointBuffer
 
@@ -174,7 +213,7 @@ def judge_frame(ref, tally: Tally, kept, rgb, depth, classes) -> None:
     p_det = to_reference(p.detections, classes)
     with torch.no_grad():
         images = ref.preprocess(rgb)
-        r_det, protos, emb = ref.detect(images)
+        r_det, ctx, emb = ref.detect(images)
         tally.detect(p.detections, r_det)
 
         r_state, r_ids = ref.track(state, p_det, det_emb=None, images=images)
@@ -182,7 +221,9 @@ def judge_frame(ref, tally: Tally, kept, rgb, depth, classes) -> None:
         tally.exact["tracker_state"] += _differ(to_reference(kept.after.trackers, classes),
                                                 r_state.trackers)
 
-        masks = ref.masks(protos, p_det)
+        masks = ref.masks(ctx, p_det)
+        if extra is not None:
+            extra.add(ref, ctx, masks, p)
         r_objs, _ = ref.object_clouds(depth, masks, p_det, p.track_ids, calib)
         tally.objects(p.per_camera_objects, r_objs, p.detections.valid, voxel)
 
@@ -200,8 +241,10 @@ def judge_frame(ref, tally: Tally, kept, rgb, depth, classes) -> None:
     tally.frames += 1
 
 
-def compare(kept, frames_of, ref) -> Dict[str, float]:
-    """Judge each kept frame (`frames_of(g)` gives its rgb and depth)."""
+def compare(kept, frames_of, ref: ReferencePipeline, extra: ExtraNumbers = None
+            ) -> Dict[str, float]:
+    """Judge each kept frame (`frames_of(g)` gives its rgb and depth); the
+    numbers of `extra` join the check's own."""
     from bench_port.reference.geometry.fusion import ObjectSet
     from bench_port.reference.geometry.ops import PointBuffer
     from bench_port.reference.geometry.voxel_sets import VoxelAccumulator
@@ -213,5 +256,11 @@ def compare(kept, frames_of, ref) -> Dict[str, float]:
                                        Detections, ObjectSet, PointBuffer)}
     tally = Tally()
     for k in kept:
-        judge_frame(ref, tally, k, *frames_of(k.frame), classes)
-    return tally.numbers()
+        judge_frame(ref, tally, k, *frames_of(k.frame), classes, extra)
+    numbers = tally.numbers()
+    if extra is not None:
+        own = extra.numbers()
+        if set(own) & set(numbers):
+            raise ValueError(f"extra numbers reuse the check's names: {sorted(set(own) & set(numbers))}")
+        numbers.update(own)
+    return numbers

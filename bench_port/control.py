@@ -2,8 +2,9 @@
 """The readings that a cell's correctness limits are set from, in one
 process on the card: the program as configured (the lower reading, the
 largest over the seeds) and its control, the program with its own int8 path
-switched on, or with `--fault` a fault of `bench_port.faults` planted
-underneath (the upper reading, the smallest over the seeds), each through
+switched on, or with `--fault` a fault of `bench_port.faults.for_cell`
+(those of any architecture, and the cell's architecture module's own)
+planted underneath (the upper reading, the smallest over the seeds), each through
 the same timed path and comparison as a run, with a short window.
 
     python3 bench_port/control.py --workload <cell> --seeds 11 12 13 \
@@ -30,12 +31,13 @@ if ROOT not in sys.path:
 
 
 def readings(workload, seeds, seconds, control, out, run_cell, fault=None):
-    from bench_port.faults import FAULTS
+    from bench_port import faults, spec
 
+    planted = faults.for_cell(spec.workload(workload))
     rows = []
     for seed in seeds:
         result, numbers = run_cell(workload, seed, seconds, False, control=control,
-                                   fault=FAULTS[fault] if fault else None)
+                                   fault=planted[fault] if fault else None)
         row = dict(workload=workload, seed=seed, control=control, fault=fault,
                    attempted=result["attempted"], correct=result["correct"], numbers=numbers)
         print(json.dumps(row), flush=True)

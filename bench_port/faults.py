@@ -2,7 +2,10 @@
 `correct` come out false and for the readings on the card that set the
 limits (`control.py --fault`). Each `fault(pipe)` breaks the program's
 pipeline `pipe` before the driver is built and returns a callable that
-undoes what it did outside `pipe`."""
+undoes what it did outside `pipe`. Those in `FAULTS` break any
+architecture's step; an architecture module (`arch/<name>.py`) may bring
+its own in a dict `FAULTS`, which `for_cell` joins to them for a cell of
+that architecture."""
 
 from __future__ import annotations
 
@@ -81,3 +84,12 @@ def workspace_voxel_moved(pipe):
 
 FAULTS = {f.__name__: f for f in (state_unchanged, half_the_cameras, detections_dropped,
                                   k2_self_in_window, workspace_voxel_moved)}
+
+
+def for_cell(cell):
+    """The faults above and those of the cell's architecture module
+    (`cell["arch"]`, as `bench_port.spec.workload` attaches it), by name."""
+    own = getattr(cell["arch"], "FAULTS", {})
+    if set(own) & set(FAULTS):
+        raise ValueError(f"faults named twice: {sorted(set(own) & set(FAULTS))}")
+    return {**FAULTS, **own}

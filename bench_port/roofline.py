@@ -2,6 +2,8 @@
 inputs: a frozen copy of the bound arithmetic of the repository's chip smoke
 test (`bound`, `window_ops`, `k4_pairs` and K3's operation count), applied
 to the arguments of each kernel wrapper call that the traced frames made.
+Which wrappers are bounded, and by which of these functions, is one file
+each, `bounds/<wrapper>.py`: a new kernel is a new file.
 
 Bytes are counted once (each input read once, each output written once);
 operations are charged at their type's rate; work that depends on the data
@@ -18,28 +20,36 @@ kernels' distances are unfused, for their bits), and 132 x 64 INT32 lanes
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+
+from bench_port import spec
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 33.5e12
 PEAK_INT32_OPS_PER_S = 16.7e12
 INT_SENTINEL = 2**31 - 1
 
-# the CUDA kernels of each wrapper, as the profiler names them (a name
-# matches when it contains one of these)
-KERNEL_NAMES = {
-    "window_dedupe": ("window_kernel", "window_wide_kernel"),
-    "window_prev_or": ("window_kernel", "window_wide_kernel"),
-    "sor_knn_mean_slots": ("sor_knn_kernel", "sor_knn_large_kernel"),
-    "sor_knn_mean": ("sor_knn_kernel", "sor_knn_large_kernel"),
-    "min_sqdist": ("min_d2_kernel", "ref_boxes_kernel"),
-}
+
+@functools.lru_cache(maxsize=None)
+def kernel_bounds(here: str = spec.HERE) -> Dict:
+    """The kernel wrappers whose launches get a bound, by name: each file
+    `bounds/<wrapper>.py` names the program's module (`MODULE`) and
+    function (`FUNCTION`) to wrap, the profiler's names of its CUDA kernels
+    (`KERNELS`: a kernel name matches when it contains one of them), and
+    `bound(args, kwargs)`, the bound of one call from its arguments as the
+    caller passed them."""
+    return {name: spec.load("bounds", name, here) for name in spec.names("bounds", here)}
 
 
-def is_kernel(name: str) -> bool:
-    return any(k in name for names in KERNEL_NAMES.values() for k in names)
+def kernel_names(here: str = spec.HERE) -> Dict[str, Tuple[str, ...]]:
+    return {name: tuple(b.KERNELS) for name, b in kernel_bounds(here).items()}
+
+
+def is_kernel(name: str, here: str = spec.HERE) -> bool:
+    return any(k in name for names in kernel_names(here).values() for k in names)
 
 
 def bound(nbytes, f32_ops=0, int_ops=0) -> Dict:
@@ -158,26 +168,14 @@ def k4_bound(q, qv, r, rv, threshold: Optional[float]) -> Dict:
     return bound(nbytes, pairs * 9)
 
 
-def _arg(args, kwargs, i, name, default=None):
+def arg(args, kwargs, i, name, default=None):
+    """Argument `i`, or keyword `name`, of a recorded call."""
     if len(args) > i:
         return args[i]
     return kwargs.get(name, default)
 
 
-def call_bound(wrapper: str, args, kwargs) -> Dict:
+def call_bound(wrapper: str, args, kwargs, here: str = spec.HERE) -> Dict:
     """The bound of one recorded call of a kernel wrapper, from its
     arguments as the caller passed them."""
-    if wrapper == "window_dedupe":
-        return k1_bound(args[0], _arg(args, kwargs, 1, "dy_max", 4),
-                        _arg(args, kwargs, 2, "dx_max", 6))
-    if wrapper == "window_prev_or":
-        return k2_bound(args[0], args[1], _arg(args, kwargs, 2, "dy_max", 4),
-                        _arg(args, kwargs, 3, "dx_max", 6))
-    if wrapper == "sor_knn_mean_slots":
-        return k3_bound(args[0], args[1])
-    if wrapper == "sor_knn_mean":
-        return k5_bound(args[0], args[1])
-    if wrapper == "min_sqdist":
-        return k4_bound(args[0], _arg(args, kwargs, 4, "query_valid"), args[1], args[2],
-                        _arg(args, kwargs, 3, "threshold"))
-    raise KeyError(wrapper)
+    return kernel_bounds(here)[wrapper].bound(args, kwargs)

@@ -10,7 +10,10 @@ checkout's `build/`, build the program's pipeline and its
 `setup_s`; the window, a closed loop through
 `PipelineDriver.run` in chunks until `--seconds` have passed; with
 `--trace 1` the host spans of every frame and a profiler slice; the
-comparison with the plain reference (`bench_port.check`). The last line of
+comparison with the plain reference (`bench_port.check`). What depends on
+the model, the stated config, the FLOPs an image, the control's lower
+precision, the reference and any numbers or faults of its own, comes from the module of the architecture
+that the configuration file names (`arch/<name>.py`). The last line of
 standard output is one JSON object: `correct`, `attempted`, `failed`,
 `metrics`, `device`, with `--trace 1` `breakdown`, and last `checks`, each
 compared number with its limit. Those numbers are also the last lines of
@@ -94,23 +97,22 @@ def rendered_frames(scene, traffic):
 
 def build_program(cell, scene, device, control: bool = False, frames=()):
     """The program's pipeline for the cell's configuration, with the
-    committed weights; with `control`, its own int8 path switched on
-    (calibrated live on `frames`). The program's configuration has to hold
-    every field of the one the configuration file states through the
-    reference's frozen copy of the config functions, at the same value."""
-    import torch
-
+    committed weights; with `control`, the configuration file's `control`
+    overrides applied and the architecture's `control(pipe, weights, conf,
+    frames)` switching on its lower-precision path. The program's configuration has to hold
+    every field of the one that the configuration file states through its
+    architecture's frozen config classes (`arch/<name>.py`), at the same
+    value, and pass the architecture's own checks."""
     from bench_port import spec
-    from bench_port.reference import config as rconfig
     from rt3d_torch import config as pconfig
     from rt3d_torch.pipeline.step import build_pipeline
 
-    c = cell["config_spec"]
+    c, arch = cell["config_spec"], cell["arch"]
     model = dict(c.get("model", {}))
     if control:
         model.update(c["control"].get("model", {}))
     cfg = spec.make_config(pconfig, dict(c, model=model), scene.cameras())
-    stated = spec.make_config(rconfig, dict(c, model=model), scene.cameras())
+    stated = arch.stated_config(dict(c, model=model), scene.cameras())
     differ, extra = spec.config_differences(cfg, stated)
     if differ:
         raise ValueError(f"config {cell['config']}: the program's configuration differs from "
@@ -118,20 +120,16 @@ def build_program(cell, scene, device, control: bool = False, frames=()):
     if extra:
         log(f"config {cell['config']}: fields of the program's configuration that the stated "
             f"one lacks: {', '.join(extra)}")
-    for key in ("variant", "input_hw", "num_classes", "compute_dtype"):
-        got = getattr(cfg.model, key)
-        if (list(got) if isinstance(got, tuple) else got) != c[key]:
-            raise ValueError(f"config {cell['config']}: {key} is {got}, the file states {c[key]}")
+    try:
+        arch.check_program(cfg, c)
+    except ValueError as e:
+        raise ValueError(f"config {cell['config']}: {e}") from e
     if cfg.rig.num_cameras != c["cameras"]:
         raise ValueError(f"config {cell['config']}: {cfg.rig.num_cameras} cameras, not {c['cameras']}")
     weights = os.path.join(ROOT, c["weights"])
     pipe = build_pipeline(cfg, weights=weights, device=device)
     if control:
-        from rt3d_torch.models.quant import quantize_pipeline
-
-        batches = [pipe.preprocess(torch.as_tensor(frames[i][0], device=pipe.device))
-                   for i in range(c["control"]["calib_frames"])]
-        quantize_pipeline(pipe, weights, batches)
+        arch.control(pipe, weights, c, frames)
     return pipe, weights
 
 
@@ -139,18 +137,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
              here: str = None, control: bool = False, fault=None, bench=None):
     """One run of cell `name`. Returns (the result line's object, every
     number the comparison gives, compared or not). `here` is the folder
-    holding `configs/` and `workloads/`; `control` runs the program's int8 path in its place;
-    `fault(pipe)` (`bench_port.faults`) breaks the program underneath;
-    `bench` stands in for `BENCHMARK.json`."""
+    holding `configs/` and `workloads/`, and any `arch/`, `bounds/` and
+    `metrics/` files that stand beside or over the benchmark's own;
+    `control` runs the program's int8 path in its place; `fault(pipe)`
+    (`bench_port.faults`) breaks the program underneath; `bench` stands in
+    for `BENCHMARK.json`."""
     import torch
 
     from bench_port import check, drive, spec, stats
-    from bench_port.flops import yolo11_seg_flops
     from bench_port.synthetic import EasyScene, cycle
     from rt3d_torch.runtime.driver import PipelineDriver
 
-    cell = spec.workload(name, **({"here": here} if here else {}))
-    traffic, conf = cell["traffic"], cell["config_spec"]
+    here = here or spec.HERE
+    cell = spec.workload(name, here)
+    traffic, conf, arch = cell["traffic"], cell["config_spec"], cell["arch"]
     scene = EasyScene(traffic["cameras"], traffic["objects"], traffic["scene_seed"],
                       tuple(traffic["hw"]))
     frames = rendered_frames(scene, traffic)
@@ -164,7 +164,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
     if trace:
         from bench_port.tracer import Tracer
 
-        tracer = Tracer(pipe)
+        tracer = Tracer(pipe, here)
         tracer.install()
     cuda = device == "cuda"
     warm = traffic["warmup_frames"]
@@ -207,11 +207,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             frames=sorted(window_frames),
             retrieval_s=driver.log.values["Frame Retrieval"][n_ret0:n_ret0 + len(in_window)],
             spans=[s for s in tracer.spans if s[1] in window_frames],
-            trace=summary, seconds=seconds, cameras=traffic["cameras"],
-            flops_per_image=yolo11_seg_flops(conf["variant"], tuple(conf["input_hw"]),
-                                             conf["num_classes"]))
+            trace=summary, seconds=seconds,
+            cameras=traffic["cameras"], flops_per_image=arch.flops_per_image(conf))
         for m in spec.cell_metrics(bench, name, "per_layer"):
-            v = spec.metric_reader(m["name"])(record)
+            v = spec.metric_reader(m["name"], here)(record)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         if summary:
@@ -236,8 +235,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = check.reference_pipeline(conf, scene.cameras(), device, weights)
-    numbers = check.compare(kept, source.frame, ref)
+    ref = check.reference_pipeline(arch, conf, scene.cameras(), device, weights)
+    extra = arch.ExtraNumbers() if hasattr(arch, "ExtraNumbers") else None
+    numbers = check.compare(kept, source.frame, ref, extra)
     del ref
     log(f"reference: {len(kept)} frames ({[k.frame for k in kept]}) in "
         f"{time.perf_counter() - t_ref} s")

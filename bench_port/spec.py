@@ -1,8 +1,18 @@
 """What a cell is, found by name: `BENCHMARK.json` at the root of the
 checkout, `configs/<config>.json` and `workloads/<cell>.json` beside this
-file, and a reader `metrics/<metric>.py` for each per-layer metric. A new
-configuration, cell or per-layer metric is a new file and a new entry in
-`BENCHMARK.json`; nothing here names one."""
+file, a reader `metrics/<metric>.py` for each per-layer metric, a module
+`arch/<architecture>.py` for each architecture that a configuration file
+names (`"architecture"`, `yolo11_seg` where it names none), and a file
+`bounds/<wrapper>.py` for each kernel wrapper whose launches get a bound.
+A new configuration, cell, architecture, kernel bound or per-layer metric
+is a new file (and, for a cell or a metric, a new entry in
+`BENCHMARK.json`); nothing here names one.
+
+Each loader takes `here`, the folder that holds `configs/` and
+`workloads/`. Another folder than this one may add `metrics/`, `arch/` and
+`bounds/` files under new names only: a name that the benchmark's own files
+beside this module already have is refused, so a folder never stands in for
+one of them."""
 
 from __future__ import annotations
 
@@ -14,6 +24,7 @@ from typing import Dict, List, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+DEFAULT_ARCHITECTURE = "yolo11_seg"
 
 
 def load_json(path: str) -> Dict:
@@ -27,10 +38,13 @@ def benchmark(root: str = ROOT) -> Dict:
 
 def workload(name: str, here: str = HERE) -> Dict:
     """The cell `name`: its workload file, with its configuration's file
-    under ``"config_spec"``."""
+    under ``"config_spec"`` and the module of the architecture that the
+    configuration names under ``"arch"``."""
     cell = load_json(os.path.join(here, "workloads", f"{name}.json"))
     cell["name"] = name
     cell["config_spec"] = load_json(os.path.join(here, "configs", f"{cell['config']}.json"))
+    cell["arch"] = architecture(cell["config_spec"].get("architecture", DEFAULT_ARCHITECTURE),
+                                here)
     return cell
 
 
@@ -40,13 +54,49 @@ def cell_metrics(bench: Dict, cell: str, kind: str) -> List[Dict]:
     return [m for m in bench[kind] if "workloads" not in m or cell in m["workloads"]]
 
 
-def metric_reader(name: str, here: str = HERE):
-    """The `read(record)` function of `metrics/<name>.py`."""
-    path = os.path.join(here, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"bench_port_metric_{name}", path)
+def _path(kind: str, name: str, here: str) -> str:
+    own = os.path.join(HERE, kind, f"{name}.py")
+    added = os.path.join(here, kind, f"{name}.py")
+    if os.path.abspath(here) == HERE or not os.path.exists(added):
+        return own
+    if os.path.exists(own):
+        raise ValueError(f"{added}: the benchmark has its own {kind}/{name}.py")
+    return added
+
+
+def load(kind: str, name: str, here: str = HERE):
+    """The module `<kind>/<name>.py` (beside this file, or new under
+    `here`), loaded by path."""
+    spec = importlib.util.spec_from_file_location(f"bench_port_{kind}_{name}",
+                                                  _path(kind, name, here))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def names(kind: str, here: str = HERE) -> List[str]:
+    """The names of the `<kind>/*.py` files under `here` and beside this
+    file."""
+    found = set()
+    for folder in {here, HERE}:
+        d = os.path.join(folder, kind)
+        if os.path.isdir(d):
+            found.update(f[:-3] for f in os.listdir(d) if f.endswith(".py") and f[0] != "_")
+    return sorted(found)
+
+
+def metric_reader(name: str, here: str = HERE):
+    """The `read(record)` function of `metrics/<name>.py`."""
+    return load("metrics", name, here).read
+
+
+def architecture(name: str, here: str = HERE):
+    """The module `arch/<name>.py`: `flops_per_image(conf)`,
+    `stated_config(conf, cameras, dtype=None)`, `check_program(cfg, conf)`,
+    `reference_pipeline(conf, cameras, device, weights)`,
+    `control(pipe, weights, conf, frames)` and, optionally,
+    `FAULTS` and `ExtraNumbers` (see `bench_port.check`)."""
+    return load("arch", name, here)
 
 
 def make_config(cfgmod, spec: Dict, cameras: List[Dict], dtype: str = None):

@@ -9,8 +9,10 @@
   Stopping the profiler costs seconds of host time, which inside the window
   would read as a stall of the step.
 * Kernel calls: over the same frames, each kernel wrapper of the program
-  records its arguments and whether it launched (its `LAUNCHES` counters
-  moved), so that `roofline` can bound each launch.
+  that a file `bounds/<wrapper>.py` names records its arguments and whether
+  it launched (its `LAUNCHES` counters moved), so that `roofline` can bound
+  each launch. A wrapper whose module or function the program lacks is
+  skipped.
 """
 
 from __future__ import annotations
@@ -19,24 +21,19 @@ import contextlib
 import time
 from typing import Dict, List, Tuple
 
-from bench_port import roofline, stats
-
-# (module of the program, wrapper name) of every kernel wrapper
-WRAPPERS = (("rt3d_torch.geometry.ops", "window_dedupe"),
-            ("rt3d_torch.geometry.ops", "window_prev_or"),
-            ("rt3d_torch.geometry.sor", "sor_knn_mean_slots"),
-            ("rt3d_torch.geometry.sor", "sor_knn_mean"),
-            ("rt3d_torch.geometry.subtract", "min_sqdist"))
+from bench_port import roofline, spec, stats
 
 
 class Tracer:
-    def __init__(self, pipeline):
+    def __init__(self, pipeline, here: str = spec.HERE):
         import torch
 
         self.torch = torch
         self.pipeline = pipeline
+        self.here = here
         self.spans: List[Tuple[str, int, float, float]] = []  # (stage, frame, t0, t1)
         self.calls: List[Tuple[str, tuple, dict]] = []
+        self.bounds: List[float] = []  # the bound (ms) of each recorded call
         self.frame = -1
         self.prof = None
         self.prof_frames = 0
@@ -77,11 +74,14 @@ class Tracer:
         self.prof.start()
         try:
             run()
-            self.torch.cuda.synchronize()
+            if self.torch.cuda.is_available():
+                self.torch.cuda.synchronize()
         finally:
             self.prof.stop()
             self._recording = False
         self.prof_frames = self.frame - first
+        self.bounds = [roofline.call_bound(n, a, k, self.here)["bound_ms"]
+                       for n, a, k in self.calls]
 
     # -- kernel calls -----------------------------------------------------
 
@@ -90,9 +90,14 @@ class Tracer:
 
         from rt3d_torch import kernels
 
-        for modname, name in WRAPPERS:
-            mod = importlib.import_module(modname)
-            fn = getattr(mod, name)
+        for name, b in roofline.kernel_bounds(self.here).items():
+            try:
+                mod = importlib.import_module(b.MODULE)
+            except ModuleNotFoundError:
+                continue
+            fn = getattr(mod, b.FUNCTION, None)
+            if fn is None:
+                continue
 
             def rec(*args, _fn=fn, _name=name, **kwargs):
                 if not self._recording:
@@ -103,8 +108,8 @@ class Tracer:
                     self.calls.append((_name, args, kwargs))
                 return out
 
-            setattr(mod, name, rec)
-            self._saved.append((mod, name, fn))
+            setattr(mod, b.FUNCTION, rec)
+            self._saved.append((mod, b.FUNCTION, fn))
 
     def uninstall(self) -> None:
         for mod, name, fn in self._saved:
@@ -136,11 +141,10 @@ class Tracer:
         if not device:
             return {}
         lo, hi = min(all_t), max(all_t)
-        bounds = [roofline.call_bound(n, a, k)["bound_ms"] for n, a, k in self.calls]
-        kernel_s = sum(s for n, s in ops.items() if roofline.is_kernel(n))
+        kernel_s = sum(s for n, s in ops.items() if roofline.is_kernel(n, self.here))
         return dict(device=device, window=(lo, hi), busy=stats.busy(device, lo, hi),
                     ops=ops, host=host, frames=self.prof_frames,
-                    launches=len(self.calls), bound_ms=sum(bounds), kernel_ms=kernel_s * 1e3)
+                    launches=len(self.calls), bound_ms=sum(self.bounds), kernel_ms=kernel_s * 1e3)
 
     @staticmethod
     def breakdown(summary: Dict, top: int = 10) -> Dict:
