@@ -665,7 +665,7 @@ def step_kernel_inputs(torch, run):
               and torch.equal(det.valid, out.detections.valid),
               "detect on the last frame again differs from the step's detections")
         with recording(ops, "window_prev_or") as k2:
-            objs, _ = pipe.object_clouds(depth, pipe.masks(protos, det), det,
+            objs, _ = pipe.object_clouds(depth, pipe.masks(protos, det)[0], det,
                                          out.track_ids, calib)
         pc = out.per_camera_objects
         check(torch.equal(objs.points, pc.points) and torch.equal(objs.valid, pc.valid),
@@ -1819,6 +1819,8 @@ def same_outputs(torch, a, b):
     """True when two `FrameOutputs` hold equal tensors everywhere."""
     if isinstance(a, torch.Tensor):
         return torch.equal(a, b)
+    if a is None or b is None:
+        return a is b
     return all(same_outputs(torch, getattr(a, f), getattr(b, f))
                for f in a.__dataclass_fields__)
 

@@ -2,7 +2,10 @@
 
 A numpy-only copy of `rt3d/config.py`: the same dataclasses and fields, so
 ``Config.from_dict(rt3d.config.Config().to_dict())`` rebuilds the same
-configuration here.
+configuration here. The port adds the mask-model fields of `ModelConfig`
+(`MASK_FIELDS`); `to_dict` writes them only where they differ from the
+default, so the dict of a configuration with the proto masks is the JAX
+package's, and `from_dict` fills them in where they are missing.
 
 The reference scatters every parameter as hardcoded literals across its entry
 scripts (camera serials `2cam/2cams_mask_gpu.py:66-67`, calibration matrices
@@ -208,6 +211,19 @@ class ModelConfig:
     # resolution (~0.004) of the 0.5 threshold can flip: a <=1 px band at
     # mask boundaries.
     mask_resize_dtype: str = "bfloat16"
+    # the mask model: "proto" (the detector's 32 proto coefficients) or
+    # Segment Anything ViT-H prompted by the detections' boxes, "sam_vit_h"
+    # (`rt3d_torch/models/sam.py`), in `compute_dtype`, with its resizes in
+    # `mask_resize_dtype`
+    mask_model: str = "proto"
+    # SAM's weights: the public checkpoint (e.g. sam_vit_h_4b8939.pth), else
+    # random from `sam_seed` by the rule of `sam.init_random`
+    sam_weights: Optional[str] = None
+    sam_seed: int = 0
+
+
+# the fields of `ModelConfig` that the JAX package lacks
+MASK_FIELDS = ("mask_model", "sam_weights", "sam_seed")
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +341,12 @@ class Config:
     # ------------------------------------------------------------------
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        default = ModelConfig()
+        for k in MASK_FIELDS:
+            if d["model"][k] == getattr(default, k):
+                del d["model"][k]
+        return d
 
     def to_json(self, path: str) -> None:
         with open(path, "w") as f:

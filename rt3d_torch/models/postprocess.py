@@ -232,8 +232,13 @@ def assemble_masks_retina(protos: torch.Tensor, coeffs: torch.Tensor,
     sh, sw = meta.src_hw
     m = F.interpolate(m[None], size=(sh, sw), mode="bilinear",
                       align_corners=False)[0]
-    ys = torch.arange(sh, dtype=torch.float32, device=m.device)[:, None]
-    xs = torch.arange(sw, dtype=torch.float32, device=m.device)[None, :]
-    x1, y1, x2, y2 = (boxes_orig[:, i][:, None, None] for i in range(4))
-    inbox = (xs[None] >= x1) & (xs[None] < x2) & (ys[None] >= y1) & (ys[None] < y2)
-    return (m > 0.5) & inbox
+    return (m > 0.5) & in_boxes(boxes_orig, (sh, sw))
+
+
+def in_boxes(boxes: torch.Tensor, hw) -> torch.Tensor:
+    """(..., H, W) bool: the pixels of an (H, W) image inside each (..., 4)
+    box (x1 <= x < x2, y1 <= y < y2), the retina masks' crop."""
+    ys = torch.arange(hw[0], dtype=torch.float32, device=boxes.device)[:, None]
+    xs = torch.arange(hw[1], dtype=torch.float32, device=boxes.device)[None, :]
+    x1, y1, x2, y2 = (boxes[..., i, None, None] for i in range(4))
+    return (xs >= x1) & (xs < x2) & (ys >= y1) & (ys < y2)

@@ -51,11 +51,12 @@ class ShardedStep:
     `calib()`) and a state from `init_state()`. Per-camera state (the
     trackers, GMC's grey frames) holds the rank's cameras only; the
     workspace accumulator is global and replicated. Per-camera outputs
-    (detections, track IDs, `per_camera_objects`) are the rank's; fused
-    outputs (objects, `objects_flat`, workspace, overflow) are the same on
-    every rank, and equal the single-device `Pipeline.step`'s with
-    ``workspace_sor`` off: as in the JAX package's sharded step, the
-    gathered workspace goes to subtraction without the workspace SOR."""
+    (detections, track IDs, `per_camera_objects`, SAM's `low_res_logits`)
+    are the rank's; fused outputs (objects, `objects_flat`, workspace,
+    overflow) are the same on every rank, and equal the single-device
+    `Pipeline.step`'s with ``workspace_sor`` off: as in the JAX package's
+    sharded step, the gathered workspace goes to subtraction without the
+    workspace SOR."""
 
     pipeline: Pipeline
     lo: int
@@ -81,9 +82,9 @@ class ShardedStep:
         with torch.no_grad():
             # per-camera work on the rank's cameras
             images = pipe.preprocess(rgb)
-            det, protos, emb = pipe.detect(images)
+            det, ctx, emb = pipe.detect(images)
             state, ids = pipe.track(state, det, det_emb=emb, images=images)
-            masks = pipe.masks(protos, det)
+            masks, low_res = pipe.masks(ctx, det)
             objs, obj_ovf = pipe.object_clouds(depth, masks, det, ids, calib)
             ws, ws_ovf = pipe.workspace_clouds(depth, calib)
 
@@ -102,7 +103,8 @@ class ShardedStep:
             overflow = local_ovf + flat_ovf.to(torch.int32) + acc_ovf
         return state, FrameOutputs(
             detections=det, track_ids=ids, objects=fused, objects_flat=flat,
-            workspace=ws_out, per_camera_objects=objs, overflow=overflow)
+            workspace=ws_out, per_camera_objects=objs, overflow=overflow,
+            low_res_logits=low_res)
 
 
 def make_sharded_step(pipeline: Pipeline, group: Optional[dist.ProcessGroup] = None

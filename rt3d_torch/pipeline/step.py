@@ -14,6 +14,15 @@ with `workspace_accumulate`, the fold of the subtracted workspace into the
 persistent voxel accumulator, whose voxels above `accum_min_weight` are
 published as the workspace.
 
+With `mask_model` set to a SAM model (`rt3d_torch/models/sam.py`), the
+masks come from Segment Anything prompted by the detections' boxes:
+`preprocess` hands the camera frames on beside the detector's input
+(`SamInput`), `detect` runs SAM's encoder on every camera's frame as one
+batch after the detector and returns the embeddings as the mask context,
+and `masks` decodes every camera's `max_detections` box slots, valid or
+not, at a fixed shape, then cuts each mask to its box and its slot's
+validity, as the proto path's retina masks are cut to their boxes.
+
 On the card, with autograd off, forward, decode and NMS replay one CUDA
 graph (`Pipeline.detect`), bit for bit the eager path's kernels; the CPU
 runs them eagerly.
@@ -28,7 +37,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, field, fields
-from typing import Callable, ContextManager, List, Optional, Sequence, Tuple
+from typing import Callable, ContextManager, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,9 +57,10 @@ from rt3d_torch.geometry.voxel_sets import (
     VoxelAccumulator, accumulate_voxels, extract_accumulated,
 )
 from rt3d_torch.models.postprocess import (
-    Detections, assemble_masks_retina, boxes_to_original, decode_predictions,
+    Detections, assemble_masks_retina, boxes_to_original, decode_predictions, in_boxes,
     letterbox_params, nms_fixed, preprocess_frame, suppress_center_duplicates,
 )
+from rt3d_torch.models.sam import Sam, build_sam
 from rt3d_torch.models.yolo import (
     YoloSeg, cast_for_inference, init_random, load_weights,
 )
@@ -113,13 +123,29 @@ class FrameOutputs:
     workspace: PointBuffer        # subtracted workspace cloud
     per_camera_objects: ObjectSet  # leading camera axis (pre-fusion)
     overflow: torch.Tensor        # () int32 total dropped-point count
+    # SAM's low-resolution logits of each slot's mask, (C, D, 256, 256) in
+    # the compute dtype (its predictor's `low_res_logits`); None on the
+    # proto path
+    low_res_logits: Optional[torch.Tensor] = None
+
+
+class SamInput(NamedTuple):
+    """`Pipeline.preprocess`'s output when SAM is the mask model: the
+    detector's letterboxed input and the camera frames, which `detect`
+    hands to SAM's own preprocessing."""
+
+    images: torch.Tensor  # (C, h, w, 3) the detector's input
+    rgb: torch.Tensor     # (C, H, W, 3) uint8 BGR camera frames
 
 
 def _map_tree(fn: Callable, *trees):
     """`fn` over the tensors of equal-shaped trees of `FrameOutputs`,
-    `Detections`, `ObjectSet` and `PointBuffer` (dataclasses of tensors)."""
+    `Detections`, `ObjectSet` and `PointBuffer` (dataclasses of tensors,
+    or None)."""
     if isinstance(trees[0], torch.Tensor):
         return fn(*trees)
+    if trees[0] is None:
+        return None
     return type(trees[0])(**{f.name: _map_tree(fn, *(getattr(t, f.name) for t in trees))
                              for f in fields(trees[0])})
 
@@ -210,12 +236,14 @@ class _DetectGraph:
 @dataclass
 class Pipeline:
     """Config, model and device. ``plain_kernels=True`` runs every kernel's
-    plain PyTorch version instead of the kernel (for comparisons only)."""
+    plain PyTorch version instead of the kernel (for comparisons only).
+    `sam` is the mask model when `cfg.model.mask_model` names SAM."""
 
     cfg: Config
     model: YoloSeg
     device: torch.device
     plain_kernels: bool = False
+    sam: Optional[Sam] = None
     _detect_graph: Optional[_DetectGraph] = field(default=None, init=False, repr=False,
                                                   compare=False)
 
@@ -258,17 +286,22 @@ class Pipeline:
 
     # -- stages ---------------------------------------------------------
 
-    def preprocess(self, rgb: torch.Tensor) -> torch.Tensor:
-        """(C, H, W, 3) u8 -> (C, h, w, 3) letterboxed model input."""
+    def preprocess(self, rgb: torch.Tensor) -> Union[torch.Tensor, SamInput]:
+        """(C, H, W, 3) u8 -> (C, h, w, 3) letterboxed model input; with
+        SAM, that and the frames (`SamInput`)."""
         meta = self._meta()
         dt = _DTYPES[self.cfg.model.preprocess_dtype]
-        return torch.stack([preprocess_frame(f, meta, dt) for f in rgb])
+        images = torch.stack([preprocess_frame(f, meta, dt) for f in rgb])
+        return images if self.sam is None else SamInput(images, rgb)
 
-    def detect(self, images: torch.Tensor
+    def detect(self, images: Union[torch.Tensor, SamInput]
                ) -> Tuple[Detections, torch.Tensor, Optional[torch.Tensor]]:
         """Forward + decode + NMS. Returns (detections with boxes in original
-        pixels, camera axis leading; protos (C, hp, wp, nm); embeddings
-        (C, D, emb_dim) when the tracker uses ReID, else None).
+        pixels, camera axis leading; the mask context: the protos (C, hp,
+        wp, nm), or with SAM its image embeddings (C, 256, 64, 64);
+        embeddings (C, D, emb_dim) when the tracker uses ReID, else None).
+        With SAM, `images` is `preprocess`'s `SamInput`, and SAM's encoder
+        runs after the detector, eagerly.
 
         On the card with autograd off, forward, decode and NMS
         (`_detect_core`) replay one CUDA graph, captured on the first such
@@ -281,6 +314,11 @@ class Pipeline:
         path, so a caller that reads activations through hooks calls the
         model itself (as `quant.collect_act_scales` does) or `detect` with
         autograd on."""
+        frames = None
+        if self.sam is not None:
+            if not isinstance(images, SamInput):
+                raise TypeError("with SAM as the mask model, detect takes preprocess's SamInput")
+            images, frames = images
         if _graph_eligible(images):
             with trace.span("detect.graph"):
                 key = (images.shape, images.stride(), images.dtype, images.device,
@@ -306,7 +344,7 @@ class Pipeline:
                 p3 = feats[0].float().permute(0, 2, 3, 1)  # stride 8, channels last
                 emb = torch.stack([self._pooled_embeddings(p3[c], det.camera(c), meta)
                                    for c in range(p3.shape[0])])
-        return det, protos, emb
+        return det, (protos if frames is None else self._encode(frames)), emb
 
     def _detect_core(self, images: torch.Tensor
                      ) -> Tuple[List[Detections], torch.Tensor, Tuple[torch.Tensor, ...]]:
@@ -374,12 +412,15 @@ class Pipeline:
 
     def track(self, state: PipelineState, det: Detections,
               det_emb: Optional[torch.Tensor] = None,
-              images: Optional[torch.Tensor] = None
+              images: Union[torch.Tensor, SamInput, None] = None
               ) -> Tuple[PipelineState, torch.Tensor]:
         """Step each camera's tracker. BoT-SORT and DeepSORT take the
         detections' embeddings when they use ReID, and with GMC the camera
         motion from the previous frame's grey image (`images` are the model
-        inputs); ByteTrack uses neither, whatever the flags say."""
+        inputs, `preprocess`'s output); ByteTrack uses neither, whatever the
+        flags say."""
+        if isinstance(images, SamInput):
+            images = images.images
         t = self.cfg.tracker
         fps = self.cfg.rig.cameras[0].fps
         prev_gray = state.prev_gray
@@ -401,16 +442,55 @@ class Pipeline:
         return (PipelineState(trackers=tuple(new), prev_gray=prev_gray, accum=state.accum),
                 torch.stack(ids))
 
-    def masks(self, protos: torch.Tensor, det: Detections) -> torch.Tensor:
+    def _encode(self, rgb: torch.Tensor) -> torch.Tensor:
+        """SAM's image embeddings (C, 256, 64, 64) of every camera's frame,
+        the cameras as one batch: SAM's preprocessing, then its encoder."""
+        with trace.span("sam.preprocess"):
+            x = self.sam.preprocess(rgb)
+        with trace.device_span("sam.encoder", x.device):
+            emb = self.sam.image_encoder(x)
+        trace.count("sam_encoder_images", x.shape[0])
+        return emb
+
+    def _sam_masks(self, embeddings: torch.Tensor, det: Detections
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """SAM's masks of every box slot: (C, D, H, W) bool full-resolution
+        masks, each cut to its box and its slot's validity (eroded as
+        `masks` erodes), and the low-resolution logits (C, D, 256, 256)."""
+        sam = self.sam
+        cam = self.cfg.rig.cameras[0].intrinsics
+        src_hw = (cam.height, cam.width)
+        with trace.span("sam.decoder"):
+            # `ResizeLongestSide.apply_boxes`: x and y scaled as the image
+            (nh, nw) = sam.input_hw(src_hw)
+            sx, sy = scalar_like(nw / src_hw[1], det.boxes), scalar_like(nh / src_hw[0], det.boxes)
+            scale = torch.stack([sx, sy, sx, sy])
+            low, _ = sam.decode_boxes(embeddings, det.boxes * scale)
+        trace.count("sam_prompt_slots", det.boxes.shape[0] * det.boxes.shape[1])
+        with trace.span("sam.postprocess"):
+            rdt = _DTYPES[self.cfg.model.mask_resize_dtype]
+            out = sam.postprocess(low, src_hw, rdt) & in_boxes(det.boxes, src_hw) \
+                & det.valid[:, :, None, None]
+            k = self.cfg.pipeline.erode_kernel
+            out = erode_mask(out, k) if k > 0 else out
+        return out, low
+
+    def masks(self, ctx: torch.Tensor, det: Detections
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(C, D, H, W) bool full-resolution instance masks, eroded by a
-        k x k element when `erode_kernel` k > 0."""
+        k x k element when `erode_kernel` k > 0, from `detect`'s mask
+        context: the protos, or SAM's embeddings; and SAM's low-resolution
+        logits (C, D, 256, 256), None on the proto path."""
+        if self.sam is not None:
+            return self._sam_masks(ctx, det)
+        protos = ctx
         meta = self._meta()
         rdt = _DTYPES[self.cfg.model.mask_resize_dtype]
         out = torch.stack([
             assemble_masks_retina(protos[c], det.coeffs[c], det.boxes[c], meta, rdt)
             for c in range(protos.shape[0])])
         k = self.cfg.pipeline.erode_kernel
-        return erode_mask(out, k) if k > 0 else out
+        return (erode_mask(out, k) if k > 0 else out), None
 
     def dense_robot_points(self, depth: torch.Tensor, calib: CameraCalib, c: int):
         """Camera c's full-resolution points in the robot frame (H, W, 3)
@@ -540,11 +620,11 @@ class Pipeline:
             with stage("YOLO11 Inference"), span("YOLO11 Inference"):
                 with span("preprocess"):
                     images = self.preprocess(rgb)
-                det, protos, emb = self.detect(images)
+                det, ctx, emb = self.detect(images)
                 state, ids = self.track(state, det, det_emb=emb, images=images)
             with stage("Mask Processing"), span("Mask Processing"):
                 with span("masks"):
-                    masks = self.masks(protos, det)
+                    masks, low_res = self.masks(ctx, det)
                 with span("object_clouds"):
                     per_cam, obj_ovf = self.object_clouds(depth, masks, det, ids, calib)
             with stage("Point Cloud Processing"), span("Point Cloud Processing"):
@@ -564,7 +644,8 @@ class Pipeline:
                 + flat_ovf.to(torch.int32) + acc_ovf
         return state, FrameOutputs(
             detections=det, track_ids=ids, objects=fused, objects_flat=flat,
-            workspace=ws_out, per_camera_objects=per_cam, overflow=overflow)
+            workspace=ws_out, per_camera_objects=per_cam, overflow=overflow,
+            low_res_logits=low_res)
 
     def step_scan(self, state: PipelineState, rgb: torch.Tensor, depth: torch.Tensor,
                   calib: CameraCalib, good: Sequence[bool]
@@ -591,7 +672,8 @@ def build_pipeline(cfg: Optional[Config] = None, weights: Optional[str] = None,
     """The pipeline for `cfg` on `device`: YOLO weights from a JAX-package
     ``.npz`` or an ultralytics ``.pt`` (`weights`, else
     `cfg.model.weights`), else random from `seed`; parameters cast to
-    `cfg.model.compute_dtype`.
+    `cfg.model.compute_dtype`. With a SAM `mask_model`, SAM from
+    `cfg.model.sam_weights`, else random from `cfg.model.sam_seed`.
     ``plain_kernels=True`` swaps every kernel for its plain PyTorch version;
     it exists for comparisons and is never the default."""
     cfg = cfg or Config()
@@ -607,6 +689,8 @@ def build_pipeline(cfg: Optional[Config] = None, weights: Optional[str] = None,
             "tighter bound")
     device = torch.device(device)
     m = cfg.model
+    sam = None if m.mask_model == "proto" else build_sam(
+        m.mask_model, _DTYPES[m.compute_dtype], device, seed=m.sam_seed, weights=m.sam_weights)
     model = YoloSeg(variant=m.variant, num_classes=m.num_classes,
                     num_mask_coeffs=m.num_mask_coeffs, input_hw=m.input_hw)
     path = weights or m.weights
@@ -615,4 +699,4 @@ def build_pipeline(cfg: Optional[Config] = None, weights: Optional[str] = None,
     else:
         init_random(model, seed)
     model = cast_for_inference(model, _DTYPES[m.compute_dtype], device)
-    return Pipeline(cfg=cfg, model=model, device=device, plain_kernels=plain_kernels)
+    return Pipeline(cfg=cfg, model=model, device=device, plain_kernels=plain_kernels, sam=sam)

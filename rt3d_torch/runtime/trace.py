@@ -14,8 +14,13 @@ Everything stays in memory, one record a traced step, in a ring of the last
 * garbage collections inside the step: generation, start and end, from a
   `gc.callbacks` hook that is installed only while tracing is on;
 * the step's kernel launches, the deltas of `kernels.LAUNCHES`;
-* the step's counts of the events in `COUNTS`, each from `count(name)`:
-  the replays and the captures of `Pipeline.detect`'s CUDA graph.
+* the step's counts of the events in `COUNTS`, each from `count(name, n)`:
+  the replays and the captures of `Pipeline.detect`'s CUDA graph, the
+  images SAM's encoder ran on and the box prompts its decoder ran on;
+* device spans: a site opened with `device_span` on a CUDA device also
+  records a pair of CUDA events on the current stream; `records()` gives
+  their elapsed device ms, read once the caller has finished the run, so
+  the step itself never waits for them.
 
 Tracing is on for a step that `Pipeline.step` is handed a `stage` hook for
 (the driver's profile mode, a benchmark's traced run), and for every step
@@ -39,6 +44,7 @@ import threading
 import time
 from typing import Dict, List, NamedTuple, Optional
 
+import torch
 from torch.autograd import profiler as _profiler
 
 from rt3d_torch import kernels
@@ -46,7 +52,8 @@ from rt3d_torch import kernels
 # steps the ring keeps: 51 s at 80 frames a second
 RING_STEPS = 4096
 # what `count` counts, each in every record
-COUNTS = ("detect_graph_replays", "detect_graph_captures")
+COUNTS = ("detect_graph_replays", "detect_graph_captures", "sam_encoder_images",
+          "sam_prompt_slots")
 
 ON = False       # tracing on now: the one flag every site tests
 _enabled = False  # `enable()` was called
@@ -69,12 +76,13 @@ class Span(NamedTuple):
 
 
 class _Record:
-    __slots__ = ("step", "spans", "gc", "launches", "counts", "_launches0")
+    __slots__ = ("step", "spans", "gc", "device", "launches", "counts", "_launches0")
 
     def __init__(self, step: int):
         self.step = step
         self.spans: List[list] = []  # [name, parent, thread, start_ns, end_ns]
         self.gc: List[tuple] = []    # (generation, start_ns, end_ns)
+        self.device: List[tuple] = []  # (name, start event, end event)
         self.launches: Dict[str, int] = {}
         self.counts: Dict[str, int] = dict.fromkeys(COUNTS, 0)
         self._launches0 = dict(kernels.LAUNCHES)
@@ -127,6 +135,31 @@ class _Span:
         if self.rf is not None:
             self.rf.__exit__(*exc)
         return False
+
+
+class _DeviceSpan(_Span):
+    """A span that also records a CUDA event on the current stream of
+    `device` as it opens and as it closes."""
+
+    __slots__ = ("device", "events")
+
+    def __init__(self, name: str, device):
+        super().__init__(name)
+        self.device = device
+
+    def __enter__(self):
+        super().__enter__()
+        if self.rec is not None:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        if self.rec is not None:
+            self.events[1].record(torch.cuda.current_stream(self.device))
+            self.rec.device.append((self.name, *self.events))
+        return super().__exit__(*exc)
 
 
 class _Step:
@@ -205,11 +238,22 @@ def sync(site: str):
     return _Span("sync." + site)
 
 
-def count(name: str) -> None:
-    """One more `name` (one of `COUNTS`) in the record of the step
-    running now; nothing outside a traced step."""
+def device_span(name: str, device):
+    """A span `name` as `span` gives, which on a CUDA `device` also times
+    the device work queued inside it on the current stream, by a pair of
+    CUDA events; on any other device a plain span."""
+    if not ON:
+        return _NULL
+    if getattr(device, "type", None) != "cuda":
+        return _Span(name)
+    return _DeviceSpan(name, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """`n` more `name` (one of `COUNTS`) in the record of the step
+    running now; nothing outside a traced step. `n` is known on the host."""
     if ON and _open is not None:
-        _open.counts[name] += 1
+        _open.counts[name] += n
 
 
 # -- the operator's use -------------------------------------------------------
@@ -239,12 +283,19 @@ def records() -> List[Dict]:
     traced step's index), `spans` ([`Span`], in the order they opened),
     `host_syncs` ({site: count} of the `sync.<site>` spans), `gc`
     ([(generation, start_ns, end_ns)]), `launches` ({kernel counter:
-    launches in the step}) and `counts` ({name: count} of every name in
-    `COUNTS`). Spans still open have `end_ns` 0."""
+    launches in the step}), `counts` ({name: count} of every name in
+    `COUNTS`) and `device_ms` ({name: [device ms of each device span]}).
+    Spans still open have `end_ns` 0. A device span's events are waited
+    for here, so call this once the traced steps are done."""
     out = []
     for rec in list(_ring):
         spans = [Span(n, rec.step, p, t, a, b) for n, p, t, a, b in list(rec.spans)]
         syncs = collections.Counter(s.name[5:] for s in spans if s.name.startswith("sync."))
+        device: Dict[str, List[float]] = {}
+        for name, start, end in list(rec.device):
+            end.synchronize()
+            device.setdefault(name, []).append(start.elapsed_time(end))
         out.append(dict(step=rec.step, spans=spans, host_syncs=dict(syncs), gc=list(rec.gc),
-                        launches=dict(rec.launches), counts=dict(rec.counts)))
+                        launches=dict(rec.launches), counts=dict(rec.counts),
+                        device_ms=device))
     return out

@@ -42,7 +42,7 @@ def _staged_step(pipe, state, rgb, depth, calib, record):
     images = record("preprocess", lambda: pipe.preprocess(rgb))
     det, protos, emb = record("detect", lambda: pipe.detect(images))
     state, ids = record("track", lambda: pipe.track(state, det, emb, images))
-    masks = record("masks", lambda: pipe.masks(protos, det))
+    masks, _ = record("masks", lambda: pipe.masks(protos, det))
     per_cam, _ = record("object_clouds",
                         lambda: pipe.object_clouds(depth, masks, det, ids, calib))
     ws, _ = record("workspace_clouds", lambda: pipe.workspace_clouds(depth, calib))

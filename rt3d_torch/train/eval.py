@@ -120,7 +120,7 @@ def evaluate_weights(
         with torch.no_grad():
             images = pipe.preprocess(torch.from_numpy(pkt.rgb).to(pipe.device))
             det, protos, _ = pipe.detect(images)
-            pred_masks = pipe.masks(protos, det).cpu().numpy()   # (C, D, H, W)
+            pred_masks = pipe.masks(protos, det)[0].cpu().numpy()   # (C, D, H, W)
         det_valid = det.valid.cpu().numpy()
         det_cls = det.classes.cpu().numpy()
         det_scores = det.scores.cpu().numpy()

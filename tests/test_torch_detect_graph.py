@@ -29,6 +29,8 @@ from rt3d_torch.runtime import trace
 from tests.tiny import tiny_config
 
 H, W = 96, 160
+# the proto path runs no SAM: its counts stay 0 in every record
+NO_SAM = {"sam_encoder_images": 0, "sam_prompt_slots": 0}
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "weights", "yolo11n_synth_seg.npz")
 
@@ -146,7 +148,7 @@ def test_cpu_detect_is_eager_and_counts_no_replay(src, frames):
     for rgb, depth in frames[:2]:
         state, _ = pipe.step(state, rgb, depth, calib)
     for rec in trace.records():
-        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0}
+        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0, **NO_SAM}
         names = [s.name for s in rec["spans"]]
         assert "detect.graph" not in names and "detect.forward" in names
     assert pipe._detect_graph is None

@@ -35,6 +35,8 @@ pytestmark = pytest.mark.cuda
 
 FRAMES = 4
 PRESETS = ("2cam", "stretch_4cam_1mm", "2cam_int8")
+# the proto path runs no SAM: its counts stay 0 in every record
+NO_SAM = {"sam_encoder_images": 0, "sam_prompt_slots": 0}
 
 
 @pytest.fixture
@@ -115,8 +117,8 @@ def test_graph_steps_equal_eager_steps(card, preset, monkeypatch):
     recs = trace.records()
     trace.clear()
     assert [r["counts"] for r in recs] == [
-        {"detect_graph_replays": 1, "detect_graph_captures": 1}] + [
-        {"detect_graph_replays": 1, "detect_graph_captures": 0}] * (FRAMES - 1)
+        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM}] + [
+        {"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM}] * (FRAMES - 1)
     assert all([s.name for s in r["spans"]].count("detect.graph") == 1 for r in recs)
     monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: False)
     eager = run()

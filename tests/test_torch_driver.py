@@ -79,6 +79,9 @@ def assert_same(a, b):
         if isinstance(x, torch.Tensor):
             assert torch.equal(x, y), path
             return
+        if x is None:
+            assert y is None, path
+            return
         for f in x.__dataclass_fields__:
             walk(getattr(x, f), getattr(y, f), f"{path}.{f}")
     walk(a, b, "out")

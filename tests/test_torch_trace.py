@@ -34,6 +34,8 @@ from tests.tiny import tiny_config
 H, W = 240, 320
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "weights", "yolo11n_synth_seg.npz")
+# the proto path runs no SAM: its counts stay 0 in every record
+NO_SAM = {"sam_encoder_images": 0, "sam_prompt_slots": 0}
 STAGES = ("YOLO11 Inference", "Mask Processing", "Point Cloud Processing",
           "Point Cloud Fusion", "Subtraction")
 # every span of a ByteTrack step and the span it opens under
@@ -109,6 +111,8 @@ def tensors(x):
         return [x]
     if isinstance(x, (tuple, list)):
         return [t for v in x for t in tensors(v)]
+    if x is None:
+        return []
     return [t for f in dataclasses.fields(x) for t in tensors(getattr(x, f.name))]
 
 
@@ -162,7 +166,7 @@ def test_spans_nest_under_their_parents(runs):
         assert names.count("sync.assignment.greedy_round") == rec["host_syncs"][
             "assignment.greedy_round"]
         # the CPU's detect is eager
-        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0}
+        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0, **NO_SAM}
 
 
 def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
@@ -179,8 +183,8 @@ def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
         state, _ = pipe.step(state, rgb, depth, calib)
     recs = trace.records()
     assert [r["counts"] for r in recs] == [
-        {"detect_graph_replays": 1, "detect_graph_captures": 1}] + [
-        {"detect_graph_replays": 1, "detect_graph_captures": 0}] * 2
+        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM}] + [
+        {"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM}] * 2
     assert [r["host_syncs"].get("step.detect_capture", 0) for r in recs] == [1, 0, 0]
     for rec in recs:
         spans = rec["spans"]

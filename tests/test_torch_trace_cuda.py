@@ -42,6 +42,23 @@ def test_host_syncs_equal_cudas_sync_count(preset, assignment):
     src = preset_source(preset, WARM + 1)
     cfg = preset_config(preset, src)
     cfg = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker, assignment=assignment))
+    check_one_step(preset, assignment, cfg, src)
+
+
+def test_sam_step_host_syncs_equal_cudas_sync_count():
+    """The 2cam preset with SAM ViT-H as its mask model: SAM's encoder and
+    mask stage add no host wait that the step does not count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    src = preset_source("2cam", WARM + 1)
+    cfg = preset_config("2cam", src)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, mask_model="sam_vit_h"))
+    check_one_step("2cam", "greedy", cfg, src)
+
+
+def check_one_step(preset, assignment, cfg, src):
+    """Warm `cfg`'s pipeline up on `WARM` frames of `src`, then count one
+    step's host syncs both ways and hold them equal."""
     pipe = build_pipeline(cfg, weights=preset_weights(preset), device="cuda")
     state, calib = pipe.init_state(), pipe.calib()
     frames = []
