@@ -15,7 +15,10 @@ Phases, each printing its wall seconds:
      without a threshold and under the step's 0.06 m threshold held to its
      contract (`check_k4_contract`). These inputs are the worst cases: a
      dense key grid, and K4's queries in random order, which no box test
-     prunes. Beside them, an empty kernel (`rt3d_noop`) timed the same way:
+     prunes. The trackers' greedy matching kernel against its plain loop
+     pair for pair on a tracker round's masked 64 x 20 cost, the loop
+     timed outside a graph, as it reads back every round. Beside them, an
+     empty kernel (`rt3d_noop`) timed the same way:
      the launch floor every kernel's time is read against. Then the
      kernels over the JAX package's whole domain (`check_domain`): K3 on
      the same slots at k 33, 48, 64, 100, 256 and 2048 (= cap) and K5 on
@@ -27,14 +30,17 @@ Phases, each printing its wall seconds:
   4. the main path: `build_pipeline` on the default config (two HD720
      cameras, yolo11x-seg with the committed weights, ByteTrack, 5 mm
      voxels) stepping 8 synthetic frames, every kernel's launch counter
-     checked per step; then (4b) K3 on the step's own fused slots of the
-     last frame (bit for bit, timed beside `cdist` + `topk`), and (4c) K1,
+     checked per step (the greedy kernel's as the step's path ran it: its
+     solves a step, which the track stage's graph replays); then (4b) K3
+     on the step's own fused slots of the last frame (bit for bit, timed
+     beside `cdist` + `topk`), and (4c) K1,
      K2 and K4 on the step's own inputs of the last frame, rebuilt by the
      pipeline's stages (`step_kernel_inputs`: they must give the step's
      object voxels and keep mask), each checked, timed and bounded for
      those inputs, with K1's and K2's sentinel shares, the share of K1's
      tiles that hold a live key and of its live keys that are duplicates,
-     and the share of K4's valid pairs its box tests keep;
+     and the share of K4's valid pairs its box tests keep, and the greedy
+     kernel on the last frame's own solves, each equal to the plain loop;
   5. the same frames with every kernel swapped for its plain version
      (`build_pipeline(plain_kernels=True)`), held against phase 4;
   4d. the `2cam` preset with ``sor_nb_neighbors=50`` (`2cam_k50`), 6
@@ -385,13 +391,23 @@ def kernel_inputs(torch, gen):
     # draws (phase 7) stay those of earlier runs
     gen = torch.Generator(device=dev).manual_seed(4096)
     c5c, c5cv = cloud(4096)
+    # a tracker round: 1 - IoU of 64 track slots and 20 detection slots,
+    # rows and columns outside the round at 1e6
+    from rt3d_torch.models.postprocess import box_iou_matrix
+
+    xy = torch.rand((84, 2), device=dev, generator=gen) * 400
+    boxes = torch.cat([xy, xy + 40 + torch.rand((84, 2), device=dev, generator=gen) * 80], 1)
+    live = torch.rand(84, device=dev, generator=gen) < 0.7
+    cost = torch.where(live[:64, None] & live[None, 64:],
+                       1.0 - box_iou_matrix(boxes[:64], boxes[64:]), 1e6)
     return dict(k1=k1, k2=k2, w2=w2, pts=pts, valid=valid, q=q, r=r.contiguous(), rv=rv,
-                c5=c5, c5v=c5v, c5b=c5b, c5bv=c5bv, c5c=c5c, c5cv=c5cv)
+                c5=c5, c5v=c5v, c5b=c5b, c5bv=c5bv, c5c=c5c, c5cv=c5cv, cost=cost)
 
 
 def check_kernels(torch, gen):
     from rt3d_torch import kernels
     from rt3d_torch.geometry import ops, sor, subtract
+    from rt3d_torch.tracking import assignment
 
     x = kernel_inputs(torch, gen)
     k = 20
@@ -497,6 +513,24 @@ def check_kernels(torch, gen):
         plain_ms=time_ms(torch, lambda: sor.sor_knn_mean(c, cv, k, plain=True)),
         library_ms=time_ms(torch, k5_library),
         bound=bound(n5 * (12 + 1 + 4 + 1), int(cv.sum()) ** 2 * 10)))
+    # the greedy matcher: pair for pair against its plain loop on a
+    # tracker round's masked 1 - IoU cost at the main path's 64 x 20; timed
+    # beside the plain loop, which reads a flag back every round
+    cost, thresh = x["cost"], 0.8
+    got = assignment.solve_matching_greedy(cost, thresh)
+    check(all(torch.equal(a, b) for a, b in zip(
+        got, assignment.solve_matching_greedy_plain(cost, thresh))),
+        "greedy_match differs from its plain loop")
+    nr, nc = cost.shape
+    rows.append(dict(
+        name="greedy_match", source="rt3d_torch/csrc/greedy_match.cu",
+        replaces=None, max_abs_err=0, pairs=int((got[0] >= 0).sum()),
+        ms=time_ms(torch, lambda: assignment.solve_matching_greedy(cost, thresh)),
+        plain_ms=time_ms(torch, lambda: assignment.solve_matching_greedy_plain(cost, thresh),
+                         graph=False),
+        library_ms=None,
+        # one round reads the matrix once and compares each entry twice
+        bound=bound(4 * nr * nc + 8 * (nr + nc), 2 * nr * nc)))
     check_domain(torch, x, {r["name"]: r for r in rows})
     kernels.reset_launches()
     return rows
@@ -688,7 +722,8 @@ def step_kernel_inputs(torch, run):
 
 def time_step_kernels(torch, run):
     """K1, K2 and K4 on the step's own inputs (`step_kernel_inputs`): each
-    against its plain version, timed beside its bound for those inputs. The
+    against its plain version, timed beside its bound for those inputs; the
+    greedy kernel on the step's own solves (`time_step_greedy`). The
     subtracted workspace goes to ``run["ws_out"]``."""
     from rt3d_torch.geometry import ops, subtract
 
@@ -745,7 +780,36 @@ def time_step_kernels(torch, run):
         exact_ms=time_ms(torch, lambda: subtract.min_sqdist(q, r, rv, query_valid=qv)),
         **bound(nbytes, kept_pairs * 9),
         valid_pairs_bound_ms=bound(nbytes, valid_pairs * 9)["bound_ms"])
+    res["greedy_match"] = time_step_greedy(torch, run)
     return res
+
+
+def time_step_greedy(torch, run):
+    """The greedy kernel on the last frame's own cost matrices: the track
+    stage stepped again from the state the last frame was stepped from,
+    eagerly (autograd on), hands over every solve's matrix; each is held
+    against the plain loop pair for pair, and the first is timed beside
+    it."""
+    from rt3d_torch.tracking import assignment
+
+    pipe, prev = run["pipe"], run["prev"]
+    with torch.enable_grad(), recording(assignment, "solve_matching_greedy") as calls:
+        pipe.track(prev, run["last"].detections)
+    cams = len(prev.trackers)
+    check(len(calls) == GREEDY_SOLVES[pipe.cfg.tracker.tracker_type] * cams,
+          f"the track stage made {len(calls)} greedy solves for {cams} cameras")
+    pairs = 0
+    for cost, thresh in calls:
+        got = assignment.solve_matching_greedy(cost, thresh)
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, assignment.solve_matching_greedy_plain(cost, thresh))),
+            f"greedy_match differs from its plain loop on a {tuple(cost.shape)} solve of the step")
+        pairs += int((got[0] >= 0).sum())
+    cost, thresh = calls[0]
+    return dict(solves=len(calls), shape=list(cost.shape), pairs=pairs,
+                ms=time_ms(torch, lambda: assignment.solve_matching_greedy(cost, thresh)),
+                plain_ms=time_ms(torch, lambda: assignment.solve_matching_greedy_plain(
+                    cost, thresh), graph=False))
 
 
 def log_step_kernels(name, res):
@@ -765,6 +829,10 @@ def log_step_kernels(name, res):
         f"{v['valid_pairs']} valid pairs the box tests keep "
         f"({v['valid_pairs_bound_ms']:.5f} ms over all of them); without a threshold "
         f"{v['exact_ms']:.4f} ms")
+    v = res["greedy_match"]
+    log(f"  greedy_match on {name}'s {v['solves']} solves of the last frame ({v['shape'][0]}x"
+        f"{v['shape'][1]}, {v['pairs']} pairs, each equal to the plain loop's): the first "
+        f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1601,14 +1669,28 @@ def check_parallel(torch, np, train_reuse, none):
 # ---------------------------------------------------------------------------
 
 
+# greedy solves in a camera's tracker step: ByteTrack's and BoT-SORT's
+# three association rounds, DeepSORT's two
+GREEDY_SOLVES = {"bytetrack": 3, "botsort": 3, "deepsort": 2}
+
+
 def run_path(torch, pipe, frames, per_step):
     """Step all frames in order; returns (per-frame event ms, wall s, host
     copies of the outputs, launches per kernel, last frame's outputs, the
-    state the last frame was stepped from)."""
+    state the last frame was stepped from). The greedy kernel's launches
+    are those the step's path ran: a replay of the track stage's graph runs
+    every solve the capture recorded, and no Python counts them, while the
+    capturing step counted each solve twice, in the warm-up and in the
+    capture; checked against its solves a step on every frame."""
     from rt3d_torch import kernels
+    from rt3d_torch.pipeline import step as step_mod
 
     state, calib = pipe.init_state(), pipe.calib()
     kernels.reset_launches()
+    t = pipe.cfg.tracker
+    solves = 0 if pipe.plain_kernels or t.assignment == "exact" else (
+        GREEDY_SOLVES[t.tracker_type] * len(state.trackers))
+    greedy = 0
     ms, outs = [], []
     t_wall = None
     for i, (rgb, depth) in enumerate(frames):
@@ -1616,20 +1698,29 @@ def run_path(torch, pipe, frames, per_step):
             torch.cuda.synchronize()
             t_wall = time.perf_counter()
         before = dict(kernels.LAUNCHES)
+        graph = pipe._track_graph
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         prev = state
-        state, out = pipe.step(state, rgb, depth, calib)
+        with recording(step_mod, "_replayed") as calls:
+            state, out = pipe.step(state, rgb, depth, calib)
         b.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
         for name, n in per_step.items():
             rose = kernels.LAUNCHES[name] - before[name]
             check(rose == n, f"frame {i}: {name} launched {rose} times, expected {n}")
+        captured = pipe._track_graph is not None and pipe._track_graph is not graph
+        replays = sum(c[1] == "track" for c in calls)
+        ran = (kernels.LAUNCHES["greedy_match"] - before["greedy_match"]
+               + (replays - 2 * captured) * solves)
+        check(ran == solves, f"frame {i}: greedy_match ran {ran} times "
+              f"({replays} track graph replays), expected {solves}")
+        greedy += ran
         outs.append(host_outputs(out))
     wall = time.perf_counter() - t_wall
-    return ms, wall, outs, dict(kernels.LAUNCHES), out, prev
+    return ms, wall, outs, {**kernels.LAUNCHES, "greedy_match": greedy}, out, prev
 
 
 def host_outputs(out):
@@ -2213,12 +2304,15 @@ def main() -> int:
     for r in rows:
         path = "sor_entry" if r["name"] == "sor_knn" else "2cam"
         steps = {p: v[r["name"]] for p, v in step_rows.items() if v.get(r["name"])}
+        # the greedy kernel's launches are counted where `run_path` counts
+        # the track graph's replays: the presets' paths
+        paths = runs if r["name"] == "greedy_match" else launches
         out_rows.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=launches[path][r["name"]], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], **r["bound"], library_ms=r["library_ms"],
             launch_floor_ms=floor_ms,
-            launches_by_path={p: n[r["name"]] for p, n in launches.items()},
+            launches_by_path={p: launches[p][r["name"]] for p in paths},
             **({"exact_ms": r["exact_ms"]} if "exact_ms" in r else {}),
             **({"step_inputs": steps} if steps else {}),
             **({"large_k": r["large_k"], "large_k_launches_by_path": {

@@ -1,6 +1,6 @@
 """Launch bookkeeping shared by the CUDA kernel wrappers.
 
-Each wrapper (in the geometry module that owns its plain PyTorch version)
+Each wrapper (in the module that owns its plain PyTorch version)
 checks its tensors, allocates its outputs and calls `launch`, which adds one
 to the wrapper's entry of `LAUNCHES` (and, for K3 and K5 at k above their
 register path's 32, to its ``_large_k`` entry too: the launch went to the
@@ -21,6 +21,7 @@ LAUNCHES: dict[str, int] = {
     "sor_knn": 0,          # K5
     "sor_knn_slots_large_k": 0,  # K3 launches at k > 32 (radix select)
     "sor_knn_large_k": 0,        # K5 launches at k > 32 (radix select)
+    "greedy_match": 0,           # the trackers' greedy matching (no TPU kernel)
 }
 
 

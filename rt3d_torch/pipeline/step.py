@@ -24,8 +24,9 @@ not, at a fixed shape, then cuts each mask to its box and its slot's
 validity, as the proto path's retina masks are cut to their boxes.
 
 On the card, with autograd off, forward, decode and NMS replay one CUDA
-graph (`Pipeline.detect`), bit for bit the eager path's kernels; the CPU
-runs them eagerly.
+graph (`Pipeline.detect`), and so does every camera's tracker step when it
+reads nothing back (`Pipeline.track`: greedy assignment, no embeddings, no
+GMC), each bit for bit the eager path's kernels; the CPU runs them eagerly.
 
 Inputs and outputs keep the JAX package's layouts: rgb (C, H, W, 3) uint8
 BGR and depth (C, H, W) f32 on the pipeline's device, per-camera results
@@ -65,6 +66,7 @@ from rt3d_torch.models.yolo import (
     YoloSeg, cast_for_inference, init_random, load_weights,
 )
 from rt3d_torch.runtime import trace
+from rt3d_torch.tracking.assignment import greedy_fits
 from rt3d_torch.tracking.botsort import (
     estimate_affine_gmc, estimate_translation_gmc, rescale_warp, translation_warp,
 )
@@ -202,35 +204,103 @@ def _graph_eligible(images: torch.Tensor) -> bool:
     return images.is_cuda and not torch.is_grad_enabled()
 
 
-class _DetectGraph:
-    """`Pipeline._detect_core` captured once in a CUDA graph, for one
-    model input's shape, strides, dtype and device and one generation of
-    the model (`YoloSeg.generation`): `key`. Its input is one static
-    buffer; `replay` copies the images into it and replays the graph on
-    the current stream. What `replay` returns lives in the graph's memory
-    and the next replay overwrites it."""
+def _copy_all(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
+    """``d.copy_(s)`` for every pair, as one foreach copy a dtype."""
+    groups = {}
+    for d, s in zip(dst, src):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
 
-    def __init__(self, pipe: "Pipeline", images: torch.Tensor, key: tuple):
+
+_TRACKER_FIELDS = tuple(f.name for f in fields(TrackerState))
+
+
+def _state_tensors(trackers: Sequence[TrackerState]) -> List[torch.Tensor]:
+    """Every field of every camera's tracker state, in order."""
+    return [getattr(ts, n) for ts in trackers for n in _TRACKER_FIELDS]
+
+
+def _trackers_of(flat: Sequence[torch.Tensor]) -> Tuple[TrackerState, ...]:
+    """The states `_state_tensors` flattened."""
+    n = len(_TRACKER_FIELDS)
+    return tuple(TrackerState(**dict(zip(_TRACKER_FIELDS, flat[i:i + n])))
+                 for i in range(0, len(flat), n))
+
+
+def _track_inputs(trackers: Sequence[TrackerState], det: Detections) -> List[torch.Tensor]:
+    """What the trackers read: the states, then the detections' boxes,
+    scores, classes and validity."""
+    return _state_tensors(trackers) + [det.boxes, det.scores, det.classes, det.valid]
+
+
+def _track_graph_eligible(pipe: "Pipeline", device: torch.device,
+                          emb: Optional[torch.Tensor], warps: Sequence) -> bool:
+    """Whether `Pipeline.track` replays its CUDA graph: on the card with
+    autograd off, the greedy solves on their kernel (greedy assignment, no
+    `plain_kernels`), and a step that takes no embeddings and no GMC warp.
+    Today that is ByteTrack, and BoT-SORT without ReID and without GMC;
+    `refined` and `exact` assignment, ReID, GMC and DeepSORT read back, and
+    run eagerly."""
+    return (device.type == "cuda" and not torch.is_grad_enabled() and not pipe.plain_kernels
+            and pipe.cfg.tracker.assignment == "greedy" and emb is None
+            and all(w is None for w in warps))
+
+
+class _CapturedGraph:
+    """`fn(*inputs)` captured once in a CUDA graph, for one `key`: what the
+    caller can observe that the capture depends on. Its inputs are static
+    buffers; `replay` copies new inputs into them and replays the graph on
+    the current stream. What `replay` returns, `fn`'s outputs, lives in the
+    graph's memory and the next replay overwrites it. The graph keeps
+    neither `fn` nor what `fn` is bound to."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], key: tuple):
         self.key = key
-        self.input = torch.empty_like(images)
-        self.input.copy_(images)
+        self.inputs = [torch.empty_like(t) for t in inputs]
+        _copy_all(self.inputs, inputs)
         # the side stream starts behind the current one, which waits on
         # the uploader's event; the warm-up on it makes the library
         # handles, workspaces and cuDNN plans the capture then reuses
-        side = torch.cuda.Stream(images.device)
-        side.wait_stream(torch.cuda.current_stream(images.device))
+        dev = self.inputs[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            pipe._detect_core(self.input)
+            fn(*self.inputs)
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: the driver's uploader thread goes on copying frames
         # on its own stream while this thread captures
         with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-            self.outputs = pipe._detect_core(self.input)
+            self.outputs = fn(*self.inputs)
 
-    def replay(self, images: torch.Tensor):
-        self.input.copy_(images)
+    def replay(self, inputs: Sequence[torch.Tensor]):
+        _copy_all(self.inputs, inputs)
         self.graph.replay()
         return self.outputs
+
+
+def _replayed(pipe: "Pipeline", stage: str, key: tuple, inputs: Sequence[torch.Tensor],
+              fn: Callable):
+    """`fn(*inputs)` from the CUDA graph `pipe` keeps for `stage` ("detect"
+    or "track", in ``pipe._<stage>_graph``): captured anew, under the sync
+    ``step.<stage>_capture``, when there is none or its key is not `key`,
+    then replayed on `inputs`. Counts ``<stage>_graph_captures`` and
+    ``<stage>_graph_replays``; returns the graph's outputs."""
+    attr = f"_{stage}_graph"
+    graph = getattr(pipe, attr)
+    if graph is None or graph.key != key:
+        graph = None
+        setattr(pipe, attr, None)  # its memory goes back before the capture
+        # the capture synchronizes the device
+        with trace.sync(f"step.{stage}_capture"):
+            graph = _CapturedGraph(fn, inputs, key)
+        setattr(pipe, attr, graph)
+        trace.count(f"{stage}_graph_captures")
+    out = graph.replay(inputs)
+    trace.count(f"{stage}_graph_replays")
+    return out
 
 
 @dataclass
@@ -244,8 +314,10 @@ class Pipeline:
     device: torch.device
     plain_kernels: bool = False
     sam: Optional[Sam] = None
-    _detect_graph: Optional[_DetectGraph] = field(default=None, init=False, repr=False,
-                                                  compare=False)
+    _detect_graph: Optional[_CapturedGraph] = field(default=None, init=False, repr=False,
+                                                    compare=False)
+    _track_graph: Optional[_CapturedGraph] = field(default=None, init=False, repr=False,
+                                                   compare=False)
 
     def __post_init__(self):
         m = self.cfg.model
@@ -323,15 +395,8 @@ class Pipeline:
             with trace.span("detect.graph"):
                 key = (images.shape, images.stride(), images.dtype, images.device,
                        self.model, self.model.generation)
-                graph = self._detect_graph
-                if graph is None or graph.key != key:
-                    self._detect_graph = None  # its memory goes back before the capture
-                    # the capture synchronizes the device
-                    with trace.sync("step.detect_capture"):
-                        graph = self._detect_graph = _DetectGraph(self, images, key)
-                    trace.count("detect_graph_captures")
-                dets, protos, feats = graph.replay(images)
-                trace.count("detect_graph_replays")
+                dets, protos, feats = _replayed(self, "detect", key, [images],
+                                                self._detect_core)
                 det = Detections.stack(dets)
         else:
             with torch.no_grad():
@@ -418,11 +483,17 @@ class Pipeline:
         detections' embeddings when they use ReID, and with GMC the camera
         motion from the previous frame's grey image (`images` are the model
         inputs, `preprocess`'s output); ByteTrack uses neither, whatever the
-        flags say."""
+        flags say.
+
+        On the card with autograd off, when the step reads nothing back
+        (greedy assignment on its kernel, no embeddings, no GMC warp: see
+        `_track_graph_eligible`), every camera's step replays one CUDA
+        graph of `_track_flat`, captured on the first such call and again
+        whenever the shapes, dtypes or devices of its inputs, the tracker
+        configuration or the frame rate change; the new states and ids are
+        copied out of the graph's memory. Anything else runs eagerly."""
         if isinstance(images, SamInput):
             images = images.images
-        t = self.cfg.tracker
-        fps = self.cfg.rig.cameras[0].fps
         prev_gray = state.prev_gray
         warps = [None] * len(state.trackers)
         if self._use_gmc and images is not None:
@@ -431,16 +502,48 @@ class Pipeline:
                 warps = self._gmc_warps(prev_gray, gray)
                 prev_gray = gray
         emb = det_emb if self._use_reid else None
+        if _track_graph_eligible(self, det.boxes.device, emb, warps):
+            with trace.span("track.graph"):
+                inputs = _track_inputs(state.trackers, det)
+                key = (tuple((x.shape, x.dtype, x.device) for x in inputs),
+                       self.cfg.tracker, self.cfg.rig.cameras[0].fps)
+                held = _replayed(self, "track", key, inputs, self._track_flat)
+                # copied out: what the caller keeps outlives the next replay
+                out = [torch.empty_like(t) for t in held]
+                _copy_all(out, held)
+                new, ids = _trackers_of(out[:-1]), out[-1]
+        else:
+            new, ids = self._track_core(state.trackers, det, emb, warps)
+        return PipelineState(trackers=new, prev_gray=prev_gray, accum=state.accum), ids
+
+    def _track_core(self, trackers: Sequence[TrackerState], det: Detections,
+                    emb: Optional[torch.Tensor] = None, warps: Optional[Sequence] = None
+                    ) -> Tuple[Tuple[TrackerState, ...], torch.Tensor]:
+        """Every camera's tracker step, in order: (new states, (C, D) ids).
+        What `track` captures when `emb` and `warps` are None."""
+        t = self.cfg.tracker
+        fps = self.cfg.rig.cameras[0].fps
         step = TRACKERS[t.tracker_type]
         new, ids = [], []
-        for c, ts in enumerate(state.trackers):
+        for c, ts in enumerate(trackers):
             with trace.span("track.camera"):
                 ts, i = step(ts, det.camera(c), t, frame_rate=fps,
-                             det_emb=None if emb is None else emb[c], gmc_warp=warps[c])
+                             det_emb=None if emb is None else emb[c],
+                             gmc_warp=None if warps is None else warps[c],
+                             plain=self.plain_kernels)
             new.append(ts)
             ids.append(i)
-        return (PipelineState(trackers=tuple(new), prev_gray=prev_gray, accum=state.accum),
-                torch.stack(ids))
+        return tuple(new), torch.stack(ids)
+
+    def _track_flat(self, *flat: torch.Tensor) -> List[torch.Tensor]:
+        """`_track_core` on `_track_inputs`' tensors, returning the new
+        states' tensors, then the ids: what `track` captures. The trackers
+        read no mask coefficients."""
+        boxes, scores, classes, valid = flat[-4:]
+        det = Detections(boxes=boxes, scores=scores, classes=classes,
+                         coeffs=boxes.new_empty(boxes.shape[:2] + (0,)), valid=valid)
+        new, ids = self._track_core(_trackers_of(flat[:-4]), det)
+        return _state_tensors(new) + [ids]
 
     def _encode(self, rgb: torch.Tensor) -> torch.Tensor:
         """SAM's image embeddings (C, 256, 64, 64) of every camera's frame,
@@ -688,6 +791,12 @@ def build_pipeline(cfg: Optional[Config] = None, weights: Optional[str] = None,
             "overflows int32 key words; use a coarser accumulation voxel or a "
             "tighter bound")
     device = torch.device(device)
+    t = cfg.tracker
+    if (device.type == "cuda" and not plain_kernels and t.assignment != "exact"
+            and not greedy_fits(t.max_tracks, cfg.model.max_detections)):
+        raise ValueError(
+            f"max_tracks={t.max_tracks} x max_detections={cfg.model.max_detections} is over "
+            "the greedy matching kernel's limit; use fewer track or detection slots")
     m = cfg.model
     sam = None if m.mask_model == "proto" else build_sam(
         m.mask_model, _DTYPES[m.compute_dtype], device, seed=m.sam_seed, weights=m.sam_weights)

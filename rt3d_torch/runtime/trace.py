@@ -16,7 +16,8 @@ Everything stays in memory, one record a traced step, in a ring of the last
 * the step's kernel launches, the deltas of `kernels.LAUNCHES`;
 * the step's counts of the events in `COUNTS`, each from `count(name, n)`:
   the replays and the captures of `Pipeline.detect`'s CUDA graph, the
-  images SAM's encoder ran on and the box prompts its decoder ran on;
+  images SAM's encoder ran on and the box prompts its decoder ran on, and
+  the replays and the captures of `Pipeline.track`'s CUDA graph;
 * device spans: a site opened with `device_span` on a CUDA device also
   records a pair of CUDA events on the current stream; `records()` gives
   their elapsed device ms, read once the caller has finished the run, so
@@ -53,7 +54,7 @@ from rt3d_torch import kernels
 RING_STEPS = 4096
 # what `count` counts, each in every record
 COUNTS = ("detect_graph_replays", "detect_graph_captures", "sam_encoder_images",
-          "sam_prompt_slots")
+          "sam_prompt_slots", "track_graph_replays", "track_graph_captures")
 
 ON = False       # tracing on now: the one flag every site tests
 _enabled = False  # `enable()` was called

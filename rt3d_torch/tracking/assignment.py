@@ -6,8 +6,11 @@ Three solvers, as `TrackerConfig.assignment` names them:
 * ``greedy``: `solve_matching_greedy` claims, round after round, every
   feasible pair that is both its row's and its column's argmin (lowest
   index on ties), which selects the same pairs as taking the globally
-  cheapest pair one at a time. The loop stops when a round claims nothing;
-  that test reads one flag back from the device per round.
+  cheapest pair one at a time, until a round claims nothing. On the card
+  one hand-written kernel (`rt3d_torch/csrc/greedy_match.cu`) runs every
+  round in one launch, with no read-back, and refuses a matrix it cannot
+  hold (`greedy_fits`); the plain loop (`solve_matching_greedy_plain`: the
+  CPU and ``plain=True``) reads one flag back from the device per round.
 * ``refined``: greedy, then `min(R, C)` rounds of the best pair swap and the
   best move into a free column (`_refine_matching`), on the device but for
   its 0-dim index tensors, which indexing reads back: 12 a round.
@@ -28,10 +31,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from rt3d_torch import kernels
 from rt3d_torch.runtime import trace
 
 BIG = 1e3    # finite infeasible cost of the exact solver's padded matrix
 _INF = 1e18
+# the greedy kernel holds the whole matrix in shared memory: at most this
+# many entries (128 KiB), and rows and columns each at most _GREEDY_MAX_SIDE
+_GREEDY_MAX_ENTRIES = 32768
+_GREEDY_MAX_SIDE = 4096
 
 
 def _unmatched(r: int, c: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,10 +126,40 @@ def solve_matching_exact(cost: torch.Tensor, thresh: float
     return col_of_row, row_of_col[:c]
 
 
-def solve_matching_greedy(cost: torch.Tensor, thresh: float
+def greedy_fits(r: int, c: int) -> bool:
+    """Whether the greedy kernel takes an r x c cost matrix: it holds the
+    whole matrix in shared memory."""
+    return r * c <= _GREEDY_MAX_ENTRIES and max(r, c) <= _GREEDY_MAX_SIDE
+
+
+def solve_matching_greedy(cost: torch.Tensor, thresh: float, plain: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cost (R, C); entries >= thresh are infeasible. Returns
-    (col_of_row (R,) int32, row_of_col (C,) int32), -1 where unmatched."""
+    """cost (R, C); entries >= thresh (and NaN) are infeasible. Returns
+    (col_of_row (R,) int32, row_of_col (C,) int32), -1 where unmatched.
+
+    On the card the kernel solves it (`LAUNCHES["greedy_match"]`), pair for
+    pair the plain loop's result; it takes a contiguous float32 matrix that
+    `greedy_fits` and raises on anything else. The CPU and ``plain=True``
+    take `solve_matching_greedy_plain`."""
+    if not kernels.use_kernel(cost, plain):
+        return solve_matching_greedy_plain(cost, thresh)
+    kernels.check(cost, torch.float32, (-1, -1), "greedy_match cost")
+    r, c = cost.shape
+    if not greedy_fits(r, c):
+        raise ValueError(f"greedy_match cost: {r} x {c} is over the kernel's limit of "
+                         f"{_GREEDY_MAX_ENTRIES} entries and {_GREEDY_MAX_SIDE} a side")
+    col_of_row, row_of_col = _unmatched(r, c, cost.device)
+    if r == 0 or c == 0:
+        return col_of_row, row_of_col
+    kernels.launch("greedy_match", "rt3d_greedy_match", cost.data_ptr(), r, c, thresh,
+                   col_of_row.data_ptr(), row_of_col.data_ptr())
+    return col_of_row, row_of_col
+
+
+def solve_matching_greedy_plain(cost: torch.Tensor, thresh: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`solve_matching_greedy` as a loop of PyTorch ops, one host read a
+    round: the CPU's path and the kernel's plain version."""
     r, c = cost.shape
     dev = cost.device
     col_of_row, row_of_col = _unmatched(r, c, dev)
@@ -218,10 +256,10 @@ def _refine_matching(cost: torch.Tensor, thresh: float, col_of_row: torch.Tensor
 
 
 def solve_matching_refined(cost: torch.Tensor, thresh: float,
-                           rounds: Optional[int] = None
+                           rounds: Optional[int] = None, plain: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy, then `rounds` (default min(R, C)) rounds of `_refine_matching`."""
-    col_of_row, row_of_col = solve_matching_greedy(cost, thresh)
+    col_of_row, row_of_col = solve_matching_greedy(cost, thresh, plain=plain)
     r, c = cost.shape
     if r == 0 or c == 0:
         return col_of_row, row_of_col
@@ -229,12 +267,15 @@ def solve_matching_refined(cost: torch.Tensor, thresh: float,
                             min(r, c) if rounds is None else rounds)
 
 
-def solve_matching(cost: torch.Tensor, thresh: float, method: str = "greedy"):
+def solve_matching(cost: torch.Tensor, thresh: float, method: str = "greedy",
+                   plain: bool = False):
+    """`method`'s solver; ``plain=True`` keeps the greedy solve off the
+    kernel."""
     if method == "exact":
         return solve_matching_exact(cost, thresh)
     if method == "greedy":
-        return solve_matching_greedy(cost, thresh)
+        return solve_matching_greedy(cost, thresh, plain=plain)
     if method == "refined":
-        return solve_matching_refined(cost, thresh)
+        return solve_matching_refined(cost, thresh, plain=plain)
     raise ValueError(f"unknown assignment method {method!r}; "
                      "expected 'greedy', 'refined', or 'exact'")

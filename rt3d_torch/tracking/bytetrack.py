@@ -81,7 +81,7 @@ def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> to
 
 
 def _assoc_round(ts, det_boxes, det_scores, row_mask, col_mask, thresh,
-                 fuse_score, method, det_emb=None, cfg=None):
+                 fuse_score, method, det_emb=None, cfg=None, plain=False):
     """One association round: (col_of_row (S,), row_of_col (D,)). With
     `det_emb` and `cfg`, the IoU cost is fused with the appearance cost."""
     iou = box_iou_matrix(xyah_to_xyxy(ts.mean[:, :4]), det_boxes)
@@ -92,7 +92,7 @@ def _assoc_round(ts, det_boxes, det_scores, row_mask, col_mask, thresh,
         cost = botsort_fuse_costs(cost, embedding_distance(ts.emb, det_emb),
                                   cfg.proximity_thresh, cfg.appearance_thresh)
     cost = torch.where(row_mask[:, None] & col_mask[None, :], cost, 1e6)
-    return solve_matching(cost, thresh, method=method)
+    return solve_matching(cost, thresh, method=method, plain=plain)
 
 
 def _matched_slots(row_of_col: torch.Tensor, s: int) -> torch.Tensor:
@@ -200,13 +200,15 @@ def _det_ids(ts: TrackerState, rounds, placeable, ids_for_new, frame_id) -> torc
 
 def bytetrack_step(ts: TrackerState, det: Detections, cfg: TrackerConfig,
                    frame_rate: int = 30, det_emb: Optional[torch.Tensor] = None,
-                   gmc_warp: Optional[torch.Tensor] = None
+                   gmc_warp: Optional[torch.Tensor] = None, plain: bool = False
                    ) -> Tuple[TrackerState, torch.Tensor]:
     """Advance one camera's tracker one frame. Returns (new state, (D,)
     int32 id per detection slot, -1 when unmatched or not activated).
     `det_emb` (D, E), with `cfg.with_reid`, fuses appearance into the first
     round and smooths the features; `gmc_warp` (2, 3) warps the predicted
-    tracks."""
+    tracks; ``plain=True`` keeps the greedy solves off their kernel. With
+    greedy assignment and neither `det_emb` nor `gmc_warp` the step reads
+    nothing back to the host, so a CUDA graph can hold it."""
     s = ts.mean.shape[0]
     use_reid = det_emb is not None and cfg.with_reid
     frame_id = ts.frame_id + 1
@@ -224,12 +226,13 @@ def bytetrack_step(ts: TrackerState, det: Detections, cfg: TrackerConfig,
 
     _, r1 = _assoc_round(ts, det.boxes, det.scores, pool, high,
                          cfg.match_thresh, cfg.fuse_score, method,
-                         det_emb if use_reid else None, cfg if use_reid else None)
+                         det_emb if use_reid else None, cfg if use_reid else None, plain)
     r1_slot = _matched_slots(r1, s)
     ts = _apply_matches(ts, r1, det_xyah, det.scores, det.classes)
 
     r2_rows = pool & was_tracked & ~r1_slot
-    _, r2 = _assoc_round(ts, det.boxes, det.scores, r2_rows, low, 0.5, False, method)
+    _, r2 = _assoc_round(ts, det.boxes, det.scores, r2_rows, low, 0.5, False, method,
+                         plain=plain)
     r2_slot = _matched_slots(r2, s)
     ts = _apply_matches(ts, r2, det_xyah, det.scores, det.classes)
     ts = ts.replace(state=torch.where(r2_rows & ~r2_slot, LOST, ts.state).to(torch.int32))
@@ -237,7 +240,7 @@ def bytetrack_step(ts: TrackerState, det: Detections, cfg: TrackerConfig,
     det_taken = (r1 >= 0) | (r2 >= 0)
     rem_high = high & ~det_taken
     _, r3 = _assoc_round(ts, det.boxes, det.scores, unconfirmed, rem_high, 0.7,
-                         cfg.fuse_score, method)
+                         cfg.fuse_score, method, plain=plain)
     r3_slot = _matched_slots(r3, s)
     ts = _apply_matches(ts, r3, det_xyah, det.scores, det.classes)
     ts = ts.replace(state=torch.where(unconfirmed & ~r3_slot, EMPTY,

@@ -51,7 +51,7 @@ def deepsort_cost(ts: TrackerState, det_xyah: torch.Tensor, det_emb: torch.Tenso
 
 def deepsort_step(ts: TrackerState, det: Detections, cfg: TrackerConfig,
                   frame_rate: int = 30, det_emb: Optional[torch.Tensor] = None,
-                  gmc_warp: Optional[torch.Tensor] = None
+                  gmc_warp: Optional[torch.Tensor] = None, plain: bool = False
                   ) -> Tuple[TrackerState, torch.Tensor]:
     """Advance one camera's DeepSORT tracker one frame; `bytetrack_step`'s
     contract. `det_emb` (D, E) is required."""
@@ -72,7 +72,7 @@ def deepsort_step(ts: TrackerState, det: Detections, cfg: TrackerConfig,
     cost1 = deepsort_cost(ts, det_xyah, det_emb, cfg)
     cost1 = torch.where(confirmed[:, None] & conf[None, :], cost1, _INF_COST)
     # the gate is the threshold: any finite cost may match
-    _, r1 = solve_matching(cost1, _INF_COST * 0.5, method=method)
+    _, r1 = solve_matching(cost1, _INF_COST * 0.5, method=method, plain=plain)
     r1_slot = _matched_slots(r1, s)
     ts = _apply_matches(ts, r1, det_xyah, det.scores, det.classes)
 
@@ -81,7 +81,7 @@ def deepsort_step(ts: TrackerState, det: Detections, cfg: TrackerConfig,
     rem = conf & ~(r1 >= 0)
     iou_cost = 1.0 - box_iou_matrix(xyah_to_xyxy(ts.mean[:, :4]), det.boxes)
     iou_cost = torch.where(r2_rows[:, None] & rem[None, :], iou_cost, _INF_COST)
-    _, r2 = solve_matching(iou_cost, cfg.match_thresh, method=method)
+    _, r2 = solve_matching(iou_cost, cfg.match_thresh, method=method, plain=plain)
     r2_slot = _matched_slots(r2, s)
     ts = _apply_matches(ts, r2, det_xyah, det.scores, det.classes)
 

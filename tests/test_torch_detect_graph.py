@@ -31,6 +31,8 @@ from tests.tiny import tiny_config
 H, W = 96, 160
 # the proto path runs no SAM: its counts stay 0 in every record
 NO_SAM = {"sam_encoder_images": 0, "sam_prompt_slots": 0}
+# the CPU's trackers run eagerly: the track graph's counts stay 0
+NO_TRACK_GRAPH = {"track_graph_replays": 0, "track_graph_captures": 0}
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "weights", "yolo11n_synth_seg.npz")
 
@@ -56,6 +58,16 @@ def frames(src):
 
 def new_pipe(src):
     return build_pipeline(small_config(src.cameras()), weights=WEIGHTS, device="cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch runs on one thread meanwhile: many small ops, and the test
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -84,18 +96,20 @@ def bit_equal(a, b) -> bool:
 
 
 class StandInGraph:
-    """`step._DetectGraph` without a card: the capture runs the core on a
-    copy of the images and keeps its outputs, a replay runs it again and
-    writes the results into those same tensors."""
+    """`step._CapturedGraph` without a card: the capture runs `fn` on
+    copies of the inputs and keeps its outputs, a replay copies the new
+    inputs in, runs `fn` again and writes the results into those same
+    tensors."""
 
-    def __init__(self, pipe, images, key):
-        self.key, self.pipe = key, pipe
-        self.input = images.clone()
-        self.outputs = pipe._detect_core(self.input)
+    def __init__(self, fn, inputs, key):
+        self.key, self.fn = key, fn
+        self.inputs = [t.clone() for t in inputs]
+        self.outputs = fn(*self.inputs)
 
-    def replay(self, images):
-        self.input.copy_(images)
-        for kept, new in zip(tensors(self.outputs), tensors(self.pipe._detect_core(self.input))):
+    def replay(self, inputs):
+        for mine, new in zip(self.inputs, inputs):
+            mine.copy_(new)
+        for kept, new in zip(tensors(self.outputs), tensors(self.fn(*self.inputs))):
             kept.copy_(new)
         return self.outputs
 
@@ -104,7 +118,7 @@ class StandInGraph:
 def graph_path(monkeypatch):
     """The graph path taken on the CPU, through `StandInGraph`."""
     monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: not torch.is_grad_enabled())
-    monkeypatch.setattr(step_mod, "_DetectGraph", StandInGraph)
+    monkeypatch.setattr(step_mod, "_CapturedGraph", StandInGraph)
 
 
 def old_class_mask(num_classes, class_filter):
@@ -148,7 +162,8 @@ def test_cpu_detect_is_eager_and_counts_no_replay(src, frames):
     for rgb, depth in frames[:2]:
         state, _ = pipe.step(state, rgb, depth, calib)
     for rec in trace.records():
-        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0, **NO_SAM}
+        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0,
+                                 **NO_SAM, **NO_TRACK_GRAPH}
         names = [s.name for s in rec["spans"]]
         assert "detect.graph" not in names and "detect.forward" in names
     assert pipe._detect_graph is None

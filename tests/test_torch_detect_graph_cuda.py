@@ -116,11 +116,15 @@ def test_graph_steps_equal_eager_steps(card, preset, monkeypatch):
         trace.disable()
     recs = trace.records()
     trace.clear()
+    # ByteTrack's greedy step replays its own graph beside detect's
     assert [r["counts"] for r in recs] == [
-        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM}] + [
-        {"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM}] * (FRAMES - 1)
+        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM,
+         "track_graph_replays": 1, "track_graph_captures": 1}] + [
+        {"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM,
+         "track_graph_replays": 1, "track_graph_captures": 0}] * (FRAMES - 1)
     assert all([s.name for s in r["spans"]].count("detect.graph") == 1 for r in recs)
     monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: False)
+    monkeypatch.setattr(step_mod, "_track_graph_eligible", lambda *a: False)
     eager = run()
     assert bit_equal(graph, eager)
 

@@ -44,6 +44,16 @@ WEIGHTS_N = os.path.join(ROOT, "weights", "yolo11n_synth_seg.npz")
 HW = tiny_config().model.input_hw  # (64, 96)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch runs on one thread meanwhile: many small ops, and the test
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def N(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

@@ -36,6 +36,8 @@ WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
                        "weights", "yolo11n_synth_seg.npz")
 # the proto path runs no SAM: its counts stay 0 in every record
 NO_SAM = {"sam_encoder_images": 0, "sam_prompt_slots": 0}
+# the CPU's trackers run eagerly: the track graph's counts stay 0
+NO_TRACK_GRAPH = {"track_graph_replays": 0, "track_graph_captures": 0}
 STAGES = ("YOLO11 Inference", "Mask Processing", "Point Cloud Processing",
           "Point Cloud Fusion", "Subtraction")
 # every span of a ByteTrack step and the span it opens under
@@ -86,6 +88,16 @@ def frames(src):
 @pytest.fixture(scope="module")
 def pipe(src):
     return build_pipeline(small_config(src.cameras()), weights=WEIGHTS, device="cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch runs on one thread meanwhile: many small ops, and the test
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -166,7 +178,8 @@ def test_spans_nest_under_their_parents(runs):
         assert names.count("sync.assignment.greedy_round") == rec["host_syncs"][
             "assignment.greedy_round"]
         # the CPU's detect is eager
-        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0, **NO_SAM}
+        assert rec["counts"] == {"detect_graph_replays": 0, "detect_graph_captures": 0,
+                                 **NO_SAM, **NO_TRACK_GRAPH}
 
 
 def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
@@ -175,7 +188,7 @@ def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
     step captures and replays, the next only replay; the replay is the span
     `detect.graph` under `YOLO11 Inference`, the capture a sync inside it."""
     monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: not torch.is_grad_enabled())
-    monkeypatch.setattr(step_mod, "_DetectGraph", StandInGraph)
+    monkeypatch.setattr(step_mod, "_CapturedGraph", StandInGraph)
     pipe = build_pipeline(small_config(src.cameras()), weights=WEIGHTS, device="cpu")
     trace.enable()
     state, calib = pipe.init_state(), pipe.calib()
@@ -183,8 +196,8 @@ def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
         state, _ = pipe.step(state, rgb, depth, calib)
     recs = trace.records()
     assert [r["counts"] for r in recs] == [
-        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM}] + [
-        {"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM}] * 2
+        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM, **NO_TRACK_GRAPH}
+    ] + [{"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM, **NO_TRACK_GRAPH}] * 2
     assert [r["host_syncs"].get("step.detect_capture", 0) for r in recs] == [1, 0, 0]
     for rec in recs:
         spans = rec["spans"]

@@ -31,6 +31,16 @@ WEIGHT_RTOL = 1e-6
 BRANCHES = {"packed": (0.005, 2.56), "packed2": (0.001, 2.56), "lex": (0.0001, 2.56)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch runs on one thread meanwhile: many small ops, and the test
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cloud(rng, n=3000, voxel=0.005, spread=0.4):
     """Points clustered on a lattice of `voxel` (many share a voxel), a few
     far outside the bound, a third invalid."""
