@@ -699,8 +699,8 @@ def step_kernel_inputs(torch, run):
               and torch.equal(det.valid, out.detections.valid),
               "detect on the last frame again differs from the step's detections")
         with recording(ops, "window_prev_or") as k2:
-            objs, _ = pipe.object_clouds(depth, pipe.masks(protos, det)[0], det,
-                                         out.track_ids, calib)
+            masks = pipe.masks(pipe.mask_model.context(rgb, protos), det)[0]
+            objs, _ = pipe.object_clouds(depth, masks, det, out.track_ids, calib)
         pc = out.per_camera_objects
         check(torch.equal(objs.points, pc.points) and torch.equal(objs.valid, pc.valid),
               "K2's rebuilt inputs do not give the step's object voxels")
@@ -1683,7 +1683,7 @@ def run_path(torch, pipe, frames, per_step):
     capturing step counted each solve twice, in the warm-up and in the
     capture; checked against its solves a step on every frame."""
     from rt3d_torch import kernels
-    from rt3d_torch.pipeline import step as step_mod
+    from rt3d_torch.runtime import graphs
 
     state, calib = pipe.init_state(), pipe.calib()
     kernels.reset_launches()
@@ -1703,7 +1703,7 @@ def run_path(torch, pipe, frames, per_step):
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         prev = state
-        with recording(step_mod, "_replayed") as calls:
+        with recording(graphs, "replayed") as calls:
             state, out = pipe.step(state, rgb, depth, calib)
         b.record()
         torch.cuda.synchronize()

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from rt3d_torch import kernels
+from rt3d_torch import kernels, tree
 from rt3d_torch.runtime import trace
 
 INT_SENTINEL = 2**31 - 1
@@ -571,8 +571,7 @@ def _voxel_masks_lex(points, valid, masks, voxel_size, capacity):
     emit = ms & ((inclusive - base) == 1) & (sx != INT_SENTINEL)[None, :]
     snapped = torch.stack([sx, sy, sz], dim=-1).float() * voxel_size
     bufs, ovfs = zip(*(compact_points(snapped, e, capacity) for e in emit))
-    return (PointBuffer(points=torch.stack([b.points for b in bufs]),
-                        valid=torch.stack([b.valid for b in bufs])), torch.stack(ovfs))
+    return tree.stack(bufs), torch.stack(ovfs)
 
 
 # ---------------------------------------------------------------------------

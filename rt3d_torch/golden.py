@@ -145,6 +145,7 @@ class Probe:
     `detect` and `_gmc_warps`; the step's outputs do not change."""
 
     def __init__(self, pipe):
+        from rt3d_torch import tree
         from rt3d_torch.tracking.bytetrack import bytetrack_init, bytetrack_step
 
         t, fps = pipe.cfg.tracker, pipe.cfg.rig.cameras[0].fps
@@ -157,7 +158,7 @@ class Probe:
             det, protos, emb = detect(images)
             ids = []
             for c in range(len(trackers)):
-                trackers[c], i = bytetrack_step(trackers[c], det.camera(c), t, frame_rate=fps)
+                trackers[c], i = bytetrack_step(trackers[c], tree.index(det, c), t, frame_rate=fps)
                 ids.append(i)
             frame = {"bytetrack_ids": torch.stack(ids)}
             if emb is not None:

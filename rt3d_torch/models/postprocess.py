@@ -36,15 +36,6 @@ class Detections:
     def replace(self, **kw) -> "Detections":
         return replace(self, **kw)
 
-    def camera(self, c: int) -> "Detections":
-        return Detections(self.boxes[c], self.scores[c], self.classes[c],
-                          self.coeffs[c], self.valid[c])
-
-    @staticmethod
-    def stack(items) -> "Detections":
-        return Detections(*(torch.stack([getattr(d, f) for d in items])
-                            for f in ("boxes", "scores", "classes", "coeffs", "valid")))
-
 
 @dataclass(frozen=True)
 class LetterboxMeta:
@@ -242,3 +233,22 @@ def in_boxes(boxes: torch.Tensor, hw) -> torch.Tensor:
     xs = torch.arange(hw[1], dtype=torch.float32, device=boxes.device)[None, :]
     x1, y1, x2, y2 = (boxes[..., i, None, None] for i in range(4))
     return (xs >= x1) & (xs < x2) & (ys >= y1) & (ys < y2)
+
+
+class ProtoMasks:
+    """YOLO-seg's own mask model, the retina masks. A mask model (or
+    `rt3d_torch.models.sam.SamMasks`) makes its `context` from the frames and
+    the protos right after detect; `masks` gives from it every slot's (C, D,
+    H, W) bool mask, cut to its box, and SAM's logits (None here)."""
+
+    def __init__(self, meta: LetterboxMeta, resize_dtype: torch.dtype):
+        self.meta, self.resize_dtype = meta, resize_dtype
+
+    def context(self, rgb: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
+        return protos
+
+    def masks(self, protos: torch.Tensor, det: Detections) -> Tuple[torch.Tensor, None]:
+        return torch.stack([
+            assemble_masks_retina(protos[c], det.coeffs[c], det.boxes[c], self.meta,
+                                  self.resize_dtype)
+            for c in range(protos.shape[0])]), None

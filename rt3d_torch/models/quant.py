@@ -260,10 +260,9 @@ def sidecar_path(weights_path: str) -> str:
 def synth_calib_batches(pipe, src, frames=(0, 7, 23, 41)) -> List[torch.Tensor]:
     """Calibration batches from a frame source through the pipeline's own
     preprocessing (letterbox and scale), on the pipeline's device: the
-    detector's input, also where SAM is the mask model (`SamInput.images`)."""
-    batches = [pipe.preprocess(torch.as_tensor(src.get(f).rgb, device=pipe.device))
-               for f in frames]
-    return [b if isinstance(b, torch.Tensor) else b.images for b in batches]
+    detector's input."""
+    return [pipe.preprocess(torch.as_tensor(src.get(f).rgb, device=pipe.device))
+            for f in frames]
 
 
 def quantize_pipeline(pipe, weights_path: Optional[str],

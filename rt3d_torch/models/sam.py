@@ -46,6 +46,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from rt3d_torch.geometry.ops import scalar_like
+from rt3d_torch.models.postprocess import Detections, in_boxes
+from rt3d_torch.runtime import trace
+
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 
@@ -489,6 +493,41 @@ class Sam(nn.Module):
         m = F.interpolate(m[..., :nh, :nw], size=tuple(src_hw), mode="bilinear",
                           align_corners=False)
         return (m > 0).reshape(c, d, *src_hw)
+
+
+class SamMasks:
+    """SAM as the step's mask model (see `postprocess.ProtoMasks`): it
+    decodes every box slot, valid or not, at a fixed shape, then cuts each
+    mask to its box and its slot's validity."""
+
+    def __init__(self, sam: Sam, src_hw: Tuple[int, int], resize_dtype: torch.dtype):
+        self.sam, self.src_hw, self.resize_dtype = sam, src_hw, resize_dtype
+
+    def context(self, rgb: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
+        """(C, 256, 64, 64) embeddings, the cameras as one batch: SAM's
+        preprocessing, then its encoder."""
+        with trace.span("sam.preprocess"):
+            x = self.sam.preprocess(rgb)
+        with trace.device_span("sam.encoder", x.device):
+            emb = self.sam.image_encoder(x)
+        trace.count("sam_encoder_images", x.shape[0])
+        return emb
+
+    def masks(self, embeddings: torch.Tensor, det: Detections
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The masks, and the low-resolution logits (C, D, 256, 256)."""
+        sam, src_hw = self.sam, self.src_hw
+        with trace.span("sam.decoder"):
+            # `ResizeLongestSide.apply_boxes`: x and y scaled as the image
+            (nh, nw) = sam.input_hw(src_hw)
+            sx, sy = scalar_like(nw / src_hw[1], det.boxes), scalar_like(nh / src_hw[0], det.boxes)
+            scale = torch.stack([sx, sy, sx, sy])
+            low, _ = sam.decode_boxes(embeddings, det.boxes * scale)
+        trace.count("sam_prompt_slots", det.boxes.shape[0] * det.boxes.shape[1])
+        with trace.span("sam.postprocess"):
+            out = sam.postprocess(low, src_hw, self.resize_dtype) & in_boxes(det.boxes, src_hw) \
+                & det.valid[:, :, None, None]
+        return out, low
 
 
 def init_random(sam: Sam, seed: int) -> Sam:

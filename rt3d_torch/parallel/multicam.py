@@ -17,14 +17,13 @@ the ranks of a `torchrun` job, one GPU a rank:
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from rt3d_torch.geometry.fusion import ObjectSet
-from rt3d_torch.geometry.ops import PointBuffer
+from rt3d_torch import tree
 from rt3d_torch.pipeline.step import (
     CameraCalib, FrameOutputs, Pipeline, PipelineState,
 )
@@ -70,9 +69,7 @@ class ShardedStep:
                              prev_gray=full.prev_gray[self.lo:self.hi], accum=full.accum)
 
     def calib(self) -> CameraCalib:
-        full = self.pipeline.calib()
-        return CameraCalib(**{f.name: getattr(full, f.name)[self.lo:self.hi]
-                              for f in fields(CameraCalib)})
+        return tree.index(self.pipeline.calib(), slice(self.lo, self.hi))
 
     def __call__(self, state: PipelineState, rgb: torch.Tensor, depth: torch.Tensor,
                  calib: CameraCalib) -> Tuple[PipelineState, FrameOutputs]:
@@ -82,17 +79,16 @@ class ShardedStep:
         with torch.no_grad():
             # per-camera work on the rank's cameras
             images = pipe.preprocess(rgb)
-            det, ctx, emb = pipe.detect(images)
+            det, protos, emb = pipe.detect(images)
+            ctx = pipe.mask_model.context(rgb, protos)
             state, ids = pipe.track(state, det, det_emb=emb, images=images)
             masks, low_res = pipe.masks(ctx, det)
             objs, obj_ovf = pipe.object_clouds(depth, masks, det, ids, calib)
             ws, ws_ovf = pipe.workspace_clouds(depth, calib)
 
             # the one collective: every camera's object sets and workspace voxels
-            objs_all = ObjectSet(*(_all_gather(getattr(objs, f.name), world, group)
-                                   for f in fields(ObjectSet)))
-            ws_all = PointBuffer(points=_all_gather(ws.points, world, group).reshape(-1, 3),
-                                 valid=_all_gather(ws.valid, world, group).reshape(-1))
+            objs_all = tree.map(lambda x: _all_gather(x, world, group), objs)
+            ws_all = tree.map(lambda x: _all_gather(x, world, group).flatten(0, 1), ws)
 
             # replicated fusion, subtraction and accumulation
             fused, flat, flat_ovf = pipe.fuse(objs_all)

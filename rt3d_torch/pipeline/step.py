@@ -14,19 +14,17 @@ with `workspace_accumulate`, the fold of the subtracted workspace into the
 persistent voxel accumulator, whose voxels above `accum_min_weight` are
 published as the workspace.
 
-With `mask_model` set to a SAM model (`rt3d_torch/models/sam.py`), the
-masks come from Segment Anything prompted by the detections' boxes:
-`preprocess` hands the camera frames on beside the detector's input
-(`SamInput`), `detect` runs SAM's encoder on every camera's frame as one
-batch after the detector and returns the embeddings as the mask context,
-and `masks` decodes every camera's `max_detections` box slots, valid or
-not, at a fixed shape, then cuts each mask to its box and its slot's
-validity, as the proto path's retina masks are cut to their boxes.
+The masks come from the pipeline's mask model: YOLO-seg's protos
+(`ProtoMasks`), or, with `mask_model` set to a SAM model, Segment Anything
+prompted by the detections' boxes (`rt3d_torch.models.sam.SamMasks`). Its
+context (the protos, or SAM's image embeddings of every camera's frame as
+one batch) is made right after `detect`, inside `YOLO11 Inference`.
 
 On the card, with autograd off, forward, decode and NMS replay one CUDA
 graph (`Pipeline.detect`), and so does every camera's tracker step when it
 reads nothing back (`Pipeline.track`: greedy assignment, no embeddings, no
-GMC), each bit for bit the eager path's kernels; the CPU runs them eagerly.
+GMC), each bit for bit the eager path's kernels (`rt3d_torch.runtime.graphs`);
+the CPU runs them eagerly.
 
 Inputs and outputs keep the JAX package's layouts: rgb (C, H, W, 3) uint8
 BGR and depth (C, H, W) f32 on the pipeline's device, per-camera results
@@ -37,13 +35,14 @@ flags, as the JAX package does.
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass, field, fields
-from typing import Callable, ContextManager, List, NamedTuple, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Callable, ContextManager, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rt3d_torch import tree
 from rt3d_torch.config import Config
 from rt3d_torch.geometry.fusion import ObjectSet, flatten_objects, fuse_centroid
 from rt3d_torch.geometry.image import erode_mask
@@ -58,14 +57,14 @@ from rt3d_torch.geometry.voxel_sets import (
     VoxelAccumulator, accumulate_voxels, extract_accumulated,
 )
 from rt3d_torch.models.postprocess import (
-    Detections, assemble_masks_retina, boxes_to_original, decode_predictions, in_boxes,
-    letterbox_params, nms_fixed, preprocess_frame, suppress_center_duplicates,
+    Detections, ProtoMasks, boxes_to_original, decode_predictions, letterbox_params, nms_fixed,
+    preprocess_frame, suppress_center_duplicates,
 )
-from rt3d_torch.models.sam import Sam, build_sam
+from rt3d_torch.models.sam import Sam, SamMasks, build_sam
 from rt3d_torch.models.yolo import (
     YoloSeg, cast_for_inference, init_random, load_weights,
 )
-from rt3d_torch.runtime import trace
+from rt3d_torch.runtime import graphs, trace
 from rt3d_torch.tracking.assignment import greedy_fits
 from rt3d_torch.tracking.botsort import (
     estimate_affine_gmc, estimate_translation_gmc, rescale_warp, translation_warp,
@@ -131,35 +130,9 @@ class FrameOutputs:
     low_res_logits: Optional[torch.Tensor] = None
 
 
-class SamInput(NamedTuple):
-    """`Pipeline.preprocess`'s output when SAM is the mask model: the
-    detector's letterboxed input and the camera frames, which `detect`
-    hands to SAM's own preprocessing."""
-
-    images: torch.Tensor  # (C, h, w, 3) the detector's input
-    rgb: torch.Tensor     # (C, H, W, 3) uint8 BGR camera frames
-
-
-def _map_tree(fn: Callable, *trees):
-    """`fn` over the tensors of equal-shaped trees of `FrameOutputs`,
-    `Detections`, `ObjectSet` and `PointBuffer` (dataclasses of tensors,
-    or None)."""
-    if isinstance(trees[0], torch.Tensor):
-        return fn(*trees)
-    if trees[0] is None:
-        return None
-    return type(trees[0])(**{f.name: _map_tree(fn, *(getattr(t, f.name) for t in trees))
-                             for f in fields(trees[0])})
-
-
-def _stack_outputs(outs: Sequence[FrameOutputs]) -> FrameOutputs:
-    """Frame outputs stacked on a new leading frame axis."""
-    return _map_tree(lambda *xs: torch.stack(xs), *outs)
-
-
 def index_outputs(out: FrameOutputs, j: int) -> FrameOutputs:
     """Frame `j` of outputs with a leading frame axis (`Pipeline.step_scan`)."""
-    return _map_tree(lambda x: x[j], out)
+    return tree.index(out, j)
 
 
 def _no_stage(name: str) -> ContextManager:
@@ -177,16 +150,6 @@ def _snapped_rays(pts: torch.Tensor, valid: torch.Tensor, voxel_size: float,
     return PointBuffer(points=torch.where(fv[:, None], fp, 0.0), valid=fv)
 
 
-def _stack_objects(sets) -> ObjectSet:
-    return ObjectSet(*(torch.stack([getattr(s, f) for s in sets])
-                       for f in ("points", "valid", "class_id", "present", "track_id")))
-
-
-def _camera_objects(objs: ObjectSet, c: int) -> ObjectSet:
-    return ObjectSet(objs.points[c], objs.valid[c], objs.class_id[c],
-                     objs.present[c], objs.track_id[c])
-
-
 def class_mask(num_classes: int, class_filter: Sequence[int], device) -> torch.Tensor:
     """(num_classes,) bool: the classes `class_filter` keeps, all of them
     when it is empty. Built on the device from comparisons, so no Python
@@ -198,130 +161,30 @@ def class_mask(num_classes: int, class_filter: Sequence[int], device) -> torch.T
     return mask
 
 
-def _graph_eligible(images: torch.Tensor) -> bool:
-    """Whether `Pipeline.detect` replays its CUDA graph for `images`: on
-    the card, with autograd off."""
-    return images.is_cuda and not torch.is_grad_enabled()
-
-
-def _copy_all(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
-    """``d.copy_(s)`` for every pair, as one foreach copy a dtype."""
-    groups = {}
-    for d, s in zip(dst, src):
-        ds, ss = groups.setdefault(d.dtype, ([], []))
-        ds.append(d)
-        ss.append(s)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
-
-
-_TRACKER_FIELDS = tuple(f.name for f in fields(TrackerState))
-
-
-def _state_tensors(trackers: Sequence[TrackerState]) -> List[torch.Tensor]:
-    """Every field of every camera's tracker state, in order."""
-    return [getattr(ts, n) for ts in trackers for n in _TRACKER_FIELDS]
-
-
-def _trackers_of(flat: Sequence[torch.Tensor]) -> Tuple[TrackerState, ...]:
-    """The states `_state_tensors` flattened."""
-    n = len(_TRACKER_FIELDS)
-    return tuple(TrackerState(**dict(zip(_TRACKER_FIELDS, flat[i:i + n])))
-                 for i in range(0, len(flat), n))
-
-
-def _track_inputs(trackers: Sequence[TrackerState], det: Detections) -> List[torch.Tensor]:
-    """What the trackers read: the states, then the detections' boxes,
-    scores, classes and validity."""
-    return _state_tensors(trackers) + [det.boxes, det.scores, det.classes, det.valid]
-
-
-def _track_graph_eligible(pipe: "Pipeline", device: torch.device,
-                          emb: Optional[torch.Tensor], warps: Sequence) -> bool:
-    """Whether `Pipeline.track` replays its CUDA graph: on the card with
-    autograd off, the greedy solves on their kernel (greedy assignment, no
-    `plain_kernels`), and a step that takes no embeddings and no GMC warp.
-    Today that is ByteTrack, and BoT-SORT without ReID and without GMC;
-    `refined` and `exact` assignment, ReID, GMC and DeepSORT read back, and
-    run eagerly."""
-    return (device.type == "cuda" and not torch.is_grad_enabled() and not pipe.plain_kernels
-            and pipe.cfg.tracker.assignment == "greedy" and emb is None
-            and all(w is None for w in warps))
-
-
-class _CapturedGraph:
-    """`fn(*inputs)` captured once in a CUDA graph, for one `key`: what the
-    caller can observe that the capture depends on. Its inputs are static
-    buffers; `replay` copies new inputs into them and replays the graph on
-    the current stream. What `replay` returns, `fn`'s outputs, lives in the
-    graph's memory and the next replay overwrites it. The graph keeps
-    neither `fn` nor what `fn` is bound to."""
-
-    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], key: tuple):
-        self.key = key
-        self.inputs = [torch.empty_like(t) for t in inputs]
-        _copy_all(self.inputs, inputs)
-        # the side stream starts behind the current one, which waits on
-        # the uploader's event; the warm-up on it makes the library
-        # handles, workspaces and cuDNN plans the capture then reuses
-        dev = self.inputs[0].device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(*self.inputs)
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: the driver's uploader thread goes on copying frames
-        # on its own stream while this thread captures
-        with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-            self.outputs = fn(*self.inputs)
-
-    def replay(self, inputs: Sequence[torch.Tensor]):
-        _copy_all(self.inputs, inputs)
-        self.graph.replay()
-        return self.outputs
-
-
-def _replayed(pipe: "Pipeline", stage: str, key: tuple, inputs: Sequence[torch.Tensor],
-              fn: Callable):
-    """`fn(*inputs)` from the CUDA graph `pipe` keeps for `stage` ("detect"
-    or "track", in ``pipe._<stage>_graph``): captured anew, under the sync
-    ``step.<stage>_capture``, when there is none or its key is not `key`,
-    then replayed on `inputs`. Counts ``<stage>_graph_captures`` and
-    ``<stage>_graph_replays``; returns the graph's outputs."""
-    attr = f"_{stage}_graph"
-    graph = getattr(pipe, attr)
-    if graph is None or graph.key != key:
-        graph = None
-        setattr(pipe, attr, None)  # its memory goes back before the capture
-        # the capture synchronizes the device
-        with trace.sync(f"step.{stage}_capture"):
-            graph = _CapturedGraph(fn, inputs, key)
-        setattr(pipe, attr, graph)
-        trace.count(f"{stage}_graph_captures")
-    out = graph.replay(inputs)
-    trace.count(f"{stage}_graph_replays")
-    return out
-
-
 @dataclass
 class Pipeline:
     """Config, model and device. ``plain_kernels=True`` runs every kernel's
     plain PyTorch version instead of the kernel (for comparisons only).
-    `sam` is the mask model when `cfg.model.mask_model` names SAM."""
+    `sam` is SAM when `cfg.model.mask_model` names it; `mask_model`, the
+    mask model, is made from it."""
 
     cfg: Config
     model: YoloSeg
     device: torch.device
     plain_kernels: bool = False
     sam: Optional[Sam] = None
-    _detect_graph: Optional[_CapturedGraph] = field(default=None, init=False, repr=False,
-                                                    compare=False)
-    _track_graph: Optional[_CapturedGraph] = field(default=None, init=False, repr=False,
-                                                   compare=False)
+    _detect_graph: Optional[graphs.CapturedGraph] = field(default=None, init=False, repr=False,
+                                                          compare=False)
+    _track_graph: Optional[graphs.CapturedGraph] = field(default=None, init=False, repr=False,
+                                                         compare=False)
 
     def __post_init__(self):
         m = self.cfg.model
         self.class_mask = class_mask(m.num_classes, m.class_filter, self.device)
+        cam = self.cfg.rig.cameras[0].intrinsics
+        src_hw, rdt = (cam.height, cam.width), _DTYPES[m.mask_resize_dtype]
+        self.mask_model = (ProtoMasks(letterbox_params(src_hw, m.input_hw), rdt)
+                           if self.sam is None else SamMasks(self.sam, src_hw, rdt))
 
     @property
     def _use_reid(self) -> bool:
@@ -358,22 +221,17 @@ class Pipeline:
 
     # -- stages ---------------------------------------------------------
 
-    def preprocess(self, rgb: torch.Tensor) -> Union[torch.Tensor, SamInput]:
-        """(C, H, W, 3) u8 -> (C, h, w, 3) letterboxed model input; with
-        SAM, that and the frames (`SamInput`)."""
+    def preprocess(self, rgb: torch.Tensor) -> torch.Tensor:
+        """(C, H, W, 3) u8 -> (C, h, w, 3) letterboxed model input."""
         meta = self._meta()
         dt = _DTYPES[self.cfg.model.preprocess_dtype]
-        images = torch.stack([preprocess_frame(f, meta, dt) for f in rgb])
-        return images if self.sam is None else SamInput(images, rgb)
+        return torch.stack([preprocess_frame(f, meta, dt) for f in rgb])
 
-    def detect(self, images: Union[torch.Tensor, SamInput]
+    def detect(self, images: torch.Tensor
                ) -> Tuple[Detections, torch.Tensor, Optional[torch.Tensor]]:
         """Forward + decode + NMS. Returns (detections with boxes in original
-        pixels, camera axis leading; the mask context: the protos (C, hp,
-        wp, nm), or with SAM its image embeddings (C, 256, 64, 64);
+        pixels, camera axis leading; the protos (C, hp, wp, nm);
         embeddings (C, D, emb_dim) when the tracker uses ReID, else None).
-        With SAM, `images` is `preprocess`'s `SamInput`, and SAM's encoder
-        runs after the detector, eagerly.
 
         On the card with autograd off, forward, decode and NMS
         (`_detect_core`) replay one CUDA graph, captured on the first such
@@ -386,30 +244,25 @@ class Pipeline:
         path, so a caller that reads activations through hooks calls the
         model itself (as `quant.collect_act_scales` does) or `detect` with
         autograd on."""
-        frames = None
-        if self.sam is not None:
-            if not isinstance(images, SamInput):
-                raise TypeError("with SAM as the mask model, detect takes preprocess's SamInput")
-            images, frames = images
-        if _graph_eligible(images):
+        if graphs.replayable(images.device):
             with trace.span("detect.graph"):
                 key = (images.shape, images.stride(), images.dtype, images.device,
                        self.model, self.model.generation)
-                dets, protos, feats = _replayed(self, "detect", key, [images],
-                                                self._detect_core)
-                det = Detections.stack(dets)
+                dets, protos, feats = graphs.replayed(self, "detect", key, self._detect_core,
+                                                      images)
+                det = tree.stack(dets)
         else:
             with torch.no_grad():
                 dets, protos, feats = self._detect_core(images)
-            det = Detections.stack(dets)
+            det = tree.stack(dets)
         emb = None
         if self._use_reid:
             meta = self._meta()
             with trace.span("detect.embed"):
                 p3 = feats[0].float().permute(0, 2, 3, 1)  # stride 8, channels last
-                emb = torch.stack([self._pooled_embeddings(p3[c], det.camera(c), meta)
+                emb = torch.stack([self._pooled_embeddings(p3[c], tree.index(det, c), meta)
                                    for c in range(p3.shape[0])])
-        return det, (protos if frames is None else self._encode(frames)), emb
+        return det, protos, emb
 
     def _detect_core(self, images: torch.Tensor
                      ) -> Tuple[List[Detections], torch.Tensor, Tuple[torch.Tensor, ...]]:
@@ -476,8 +329,7 @@ class Pipeline:
         return warps
 
     def track(self, state: PipelineState, det: Detections,
-              det_emb: Optional[torch.Tensor] = None,
-              images: Union[torch.Tensor, SamInput, None] = None
+              det_emb: Optional[torch.Tensor] = None, images: Optional[torch.Tensor] = None
               ) -> Tuple[PipelineState, torch.Tensor]:
         """Step each camera's tracker. BoT-SORT and DeepSORT take the
         detections' embeddings when they use ReID, and with GMC the camera
@@ -487,13 +339,11 @@ class Pipeline:
 
         On the card with autograd off, when the step reads nothing back
         (greedy assignment on its kernel, no embeddings, no GMC warp: see
-        `_track_graph_eligible`), every camera's step replays one CUDA
-        graph of `_track_flat`, captured on the first such call and again
-        whenever the shapes, dtypes or devices of its inputs, the tracker
+        `_track_replays`), every camera's step replays one CUDA graph of
+        `_track_core`, captured on the first such call and again whenever
+        the shapes, dtypes or devices of its inputs, the tracker
         configuration or the frame rate change; the new states and ids are
         copied out of the graph's memory. Anything else runs eagerly."""
-        if isinstance(images, SamInput):
-            images = images.images
         prev_gray = state.prev_gray
         warps = [None] * len(state.trackers)
         if self._use_gmc and images is not None:
@@ -502,19 +352,26 @@ class Pipeline:
                 warps = self._gmc_warps(prev_gray, gray)
                 prev_gray = gray
         emb = det_emb if self._use_reid else None
-        if _track_graph_eligible(self, det.boxes.device, emb, warps):
+        if self._track_replays(det.boxes.device, emb, warps):
             with trace.span("track.graph"):
-                inputs = _track_inputs(state.trackers, det)
-                key = (tuple((x.shape, x.dtype, x.device) for x in inputs),
+                args = (state.trackers, det.replace(coeffs=None))  # trackers read no coeffs
+                key = (tuple((x.shape, x.dtype, x.device) for x in tree.leaves(args)),
                        self.cfg.tracker, self.cfg.rig.cameras[0].fps)
-                held = _replayed(self, "track", key, inputs, self._track_flat)
-                # copied out: what the caller keeps outlives the next replay
-                out = [torch.empty_like(t) for t in held]
-                _copy_all(out, held)
-                new, ids = _trackers_of(out[:-1]), out[-1]
+                new, ids = graphs.copied(graphs.replayed(self, "track", key, self._track_core,
+                                                         *args))
         else:
             new, ids = self._track_core(state.trackers, det, emb, warps)
         return PipelineState(trackers=new, prev_gray=prev_gray, accum=state.accum), ids
+
+    def _track_replays(self, device: torch.device, emb: Optional[torch.Tensor],
+                       warps: Sequence) -> bool:
+        """Whether `track` replays its CUDA graph: where `graphs.replayable`,
+        with the greedy solves on their kernel (greedy assignment, no
+        `plain_kernels`), no embeddings and no GMC warp. `refined` and
+        `exact` assignment, ReID, GMC and DeepSORT read back, and run eagerly."""
+        return (graphs.replayable(device) and not self.plain_kernels
+                and self.cfg.tracker.assignment == "greedy" and emb is None
+                and all(w is None for w in warps))
 
     def _track_core(self, trackers: Sequence[TrackerState], det: Detections,
                     emb: Optional[torch.Tensor] = None, warps: Optional[Sequence] = None
@@ -527,7 +384,7 @@ class Pipeline:
         new, ids = [], []
         for c, ts in enumerate(trackers):
             with trace.span("track.camera"):
-                ts, i = step(ts, det.camera(c), t, frame_rate=fps,
+                ts, i = step(ts, tree.index(det, c), t, frame_rate=fps,
                              det_emb=None if emb is None else emb[c],
                              gmc_warp=None if warps is None else warps[c],
                              plain=self.plain_kernels)
@@ -535,65 +392,16 @@ class Pipeline:
             ids.append(i)
         return tuple(new), torch.stack(ids)
 
-    def _track_flat(self, *flat: torch.Tensor) -> List[torch.Tensor]:
-        """`_track_core` on `_track_inputs`' tensors, returning the new
-        states' tensors, then the ids: what `track` captures. The trackers
-        read no mask coefficients."""
-        boxes, scores, classes, valid = flat[-4:]
-        det = Detections(boxes=boxes, scores=scores, classes=classes,
-                         coeffs=boxes.new_empty(boxes.shape[:2] + (0,)), valid=valid)
-        new, ids = self._track_core(_trackers_of(flat[:-4]), det)
-        return _state_tensors(new) + [ids]
-
-    def _encode(self, rgb: torch.Tensor) -> torch.Tensor:
-        """SAM's image embeddings (C, 256, 64, 64) of every camera's frame,
-        the cameras as one batch: SAM's preprocessing, then its encoder."""
-        with trace.span("sam.preprocess"):
-            x = self.sam.preprocess(rgb)
-        with trace.device_span("sam.encoder", x.device):
-            emb = self.sam.image_encoder(x)
-        trace.count("sam_encoder_images", x.shape[0])
-        return emb
-
-    def _sam_masks(self, embeddings: torch.Tensor, det: Detections
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """SAM's masks of every box slot: (C, D, H, W) bool full-resolution
-        masks, each cut to its box and its slot's validity (eroded as
-        `masks` erodes), and the low-resolution logits (C, D, 256, 256)."""
-        sam = self.sam
-        cam = self.cfg.rig.cameras[0].intrinsics
-        src_hw = (cam.height, cam.width)
-        with trace.span("sam.decoder"):
-            # `ResizeLongestSide.apply_boxes`: x and y scaled as the image
-            (nh, nw) = sam.input_hw(src_hw)
-            sx, sy = scalar_like(nw / src_hw[1], det.boxes), scalar_like(nh / src_hw[0], det.boxes)
-            scale = torch.stack([sx, sy, sx, sy])
-            low, _ = sam.decode_boxes(embeddings, det.boxes * scale)
-        trace.count("sam_prompt_slots", det.boxes.shape[0] * det.boxes.shape[1])
-        with trace.span("sam.postprocess"):
-            rdt = _DTYPES[self.cfg.model.mask_resize_dtype]
-            out = sam.postprocess(low, src_hw, rdt) & in_boxes(det.boxes, src_hw) \
-                & det.valid[:, :, None, None]
-            k = self.cfg.pipeline.erode_kernel
-            out = erode_mask(out, k) if k > 0 else out
-        return out, low
-
     def masks(self, ctx: torch.Tensor, det: Detections
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(C, D, H, W) bool full-resolution instance masks, eroded by a
-        k x k element when `erode_kernel` k > 0, from `detect`'s mask
-        context: the protos, or SAM's embeddings; and SAM's low-resolution
-        logits (C, D, 256, 256), None on the proto path."""
-        if self.sam is not None:
-            return self._sam_masks(ctx, det)
-        protos = ctx
-        meta = self._meta()
-        rdt = _DTYPES[self.cfg.model.mask_resize_dtype]
-        out = torch.stack([
-            assemble_masks_retina(protos[c], det.coeffs[c], det.boxes[c], meta, rdt)
-            for c in range(protos.shape[0])])
+        k x k element when `erode_kernel` k > 0, from the mask model's
+        context (`mask_model.context`: the protos, or SAM's embeddings); and
+        SAM's low-resolution logits (C, D, 256, 256), None on the proto
+        path."""
+        out, low = self.mask_model.masks(ctx, det)
         k = self.cfg.pipeline.erode_kernel
-        return (erode_mask(out, k) if k > 0 else out), None
+        return (erode_mask(out, k) if k > 0 else out), low
 
     def dense_robot_points(self, depth: torch.Tensor, calib: CameraCalib, c: int):
         """Camera c's full-resolution points in the robot frame (H, W, 3)
@@ -616,14 +424,14 @@ class Pipeline:
                 stage1_capacity=p.mask_presort_capacity,
                 union_capacity=p.max_union_voxels, grid_hw=(h, w),
                 plain=self.plain_kernels)
-            dc = det.camera(c)
+            dc = tree.index(det, c)
             sets.append(ObjectSet(points=buf.points,
                                   valid=buf.valid & dc.valid[:, None],
                                   class_id=dc.classes,
                                   present=dc.valid & (buf.count > 0),
                                   track_id=track_ids[c]))
             ovfs.append(ovf.sum(dtype=torch.int32))
-        return _stack_objects(sets), torch.stack(ovfs)
+        return tree.stack(sets), torch.stack(ovfs)
 
     def workspace_clouds(self, depth, calib: CameraCalib
                          ) -> Tuple[PointBuffer, torch.Tensor]:
@@ -636,7 +444,7 @@ class Pipeline:
         raw = p.workspace_accumulate and p.accum_skip_prededupe and not p.workspace_sor
         s = p.workspace_stride
         depth_s = strided_grid_downsample(depth, s)
-        pts_out, valid_out, ovfs = [], [], []
+        bufs, ovfs = [], []
         for i in range(depth.shape[0]):
             sd = scalar_like(float(s), depth_s)
             xyz, valid = backproject_depth_grid(
@@ -653,19 +461,17 @@ class Pipeline:
                                                  p.max_points_workspace,
                                                  bound_m=p.dedupe_bound_m,
                                                  plain=self.plain_kernels)
-            pts_out.append(buf.points)
-            valid_out.append(buf.valid)
+            bufs.append(buf)
             ovfs.append(ovf)
-        return (PointBuffer(points=torch.stack(pts_out), valid=torch.stack(valid_out)),
-                torch.stack(ovfs))
+        return tree.stack(bufs), torch.stack(ovfs)
 
     def fuse(self, per_cam: ObjectSet) -> Tuple[ObjectSet, PointBuffer, torch.Tensor]:
         """Fold the cameras' object sets pairwise, then flatten (K3 inside)."""
         p = self.cfg.pipeline
         with trace.span("fuse"):
-            fused = _camera_objects(per_cam, 0)
+            fused = tree.index(per_cam, 0)
             for c in range(1, self.cfg.rig.num_cameras):
-                fused = fuse_centroid(fused, _camera_objects(per_cam, c),
+                fused = fuse_centroid(fused, tree.index(per_cam, c),
                                       p.fusion_distance_threshold, p.sor_nb_neighbors,
                                       p.sor_std_ratio, plain=self.plain_kernels)
         with trace.span("fuse.flatten"):
@@ -723,7 +529,8 @@ class Pipeline:
             with stage("YOLO11 Inference"), span("YOLO11 Inference"):
                 with span("preprocess"):
                     images = self.preprocess(rgb)
-                det, ctx, emb = self.detect(images)
+                det, protos, emb = self.detect(images)
+                ctx = self.mask_model.context(rgb, protos)
                 state, ids = self.track(state, det, det_emb=emb, images=images)
             with stage("Mask Processing"), span("Mask Processing"):
                 with span("masks"):
@@ -734,8 +541,7 @@ class Pipeline:
                 with span("workspace_clouds"):
                     ws, ws_ovf = self.workspace_clouds(depth, calib)
                 with span("workspace_sor"):
-                    ws_all = self.workspace_sor(PointBuffer(points=ws.points.reshape(-1, 3),
-                                                            valid=ws.valid.reshape(-1)))
+                    ws_all = self.workspace_sor(tree.map(lambda x: x.flatten(0, 1), ws))
             with stage("Point Cloud Fusion"), span("Point Cloud Fusion"):
                 fused, flat, flat_ovf = self.fuse(per_cam)
             with stage("Subtraction"), span("Subtraction"):
@@ -766,7 +572,7 @@ class Pipeline:
             if good[k]:
                 state = new
             outs.append(out)
-        return state, _stack_outputs(outs)
+        return state, tree.stack(outs)
 
 
 def build_pipeline(cfg: Optional[Config] = None, weights: Optional[str] = None,

@@ -14,30 +14,12 @@ as their int16 bits.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Iterator, Mapping, Tuple
+from typing import Any
 
 import numpy as np
 import torch
 
-
-def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
-    def sub(name) -> str:
-        return f"{prefix}/{name}" if prefix else str(name)
-
-    if isinstance(tree, torch.Tensor):
-        yield prefix, tree
-    elif dataclasses.is_dataclass(tree):
-        for f in dataclasses.fields(tree):
-            yield from _leaves(getattr(tree, f.name), sub(f.name))
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, sub(i))
-    elif isinstance(tree, Mapping):
-        for k, v in tree.items():
-            yield from _leaves(v, sub(k))
-    else:
-        raise TypeError(f"checkpoint: unsupported leaf {prefix!r} of type {type(tree).__name__}")
+from rt3d_torch.tree import leaves_with_paths, unflatten
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -46,7 +28,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def save_pytree(path: str, tree: Any) -> None:
-    np.savez_compressed(path, **{k: _to_numpy(v) for k, v in _leaves(tree)})
+    np.savez_compressed(path, **{k: _to_numpy(v) for k, v in leaves_with_paths(tree)})
 
 
 def load_pytree(path: str, like: Any) -> Any:
@@ -55,27 +37,15 @@ def load_pytree(path: str, like: Any) -> Any:
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
 
-    def build(tree: Any, prefix: str) -> Any:
-        def sub(name) -> str:
-            return f"{prefix}/{name}" if prefix else str(name)
+    def load(key: str, like_t: torch.Tensor) -> torch.Tensor:
+        if key not in data:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        arr = data[key]
+        if tuple(arr.shape) != tuple(like_t.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != {tuple(like_t.shape)}")
+        t = torch.from_numpy(arr)
+        if like_t.dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        return t.to(device=like_t.device, dtype=like_t.dtype)
 
-        if isinstance(tree, torch.Tensor):
-            if prefix not in data:
-                raise KeyError(f"checkpoint missing leaf {prefix}")
-            arr = data[prefix]
-            if tuple(arr.shape) != tuple(tree.shape):
-                raise ValueError(f"{prefix}: shape {arr.shape} != {tuple(tree.shape)}")
-            t = torch.from_numpy(arr)
-            if tree.dtype == torch.bfloat16:
-                t = t.view(torch.bfloat16)
-            return t.to(device=tree.device, dtype=tree.dtype)
-        if dataclasses.is_dataclass(tree):
-            return type(tree)(**{f.name: build(getattr(tree, f.name), sub(f.name))
-                                 for f in dataclasses.fields(tree)})
-        if isinstance(tree, (tuple, list)):
-            return type(tree)(build(v, sub(i)) for i, v in enumerate(tree))
-        if isinstance(tree, Mapping):
-            return {k: build(v, sub(k)) for k, v in tree.items()}
-        raise TypeError(f"checkpoint: unsupported leaf {prefix!r} of type {type(tree).__name__}")
-
-    return build(like, "")
+    return unflatten(like, [load(k, t) for k, t in leaves_with_paths(like)])

@@ -41,8 +41,9 @@ def _staged_step(pipe, state, rgb, depth, calib, record):
     times each one."""
     images = record("preprocess", lambda: pipe.preprocess(rgb))
     det, protos, emb = record("detect", lambda: pipe.detect(images))
+    ctx = record("mask_context", lambda: pipe.mask_model.context(rgb, protos))
     state, ids = record("track", lambda: pipe.track(state, det, emb, images))
-    masks, _ = record("masks", lambda: pipe.masks(protos, det))
+    masks, _ = record("masks", lambda: pipe.masks(ctx, det))
     per_cam, _ = record("object_clouds",
                         lambda: pipe.object_clouds(depth, masks, det, ids, calib))
     ws, _ = record("workspace_clouds", lambda: pipe.workspace_clouds(depth, calib))

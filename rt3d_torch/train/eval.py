@@ -118,9 +118,10 @@ def evaluate_weights(
         gt_all = src.gt_masks_all(idx)     # (C, M, H, W)
         cls_all = src.all_classes          # (M,)
         with torch.no_grad():
-            images = pipe.preprocess(torch.from_numpy(pkt.rgb).to(pipe.device))
-            det, protos, _ = pipe.detect(images)
-            pred_masks = pipe.masks(protos, det)[0].cpu().numpy()   # (C, D, H, W)
+            rgb = torch.from_numpy(pkt.rgb).to(pipe.device)
+            det, protos, _ = pipe.detect(pipe.preprocess(rgb))
+            ctx = pipe.mask_model.context(rgb, protos)
+            pred_masks = pipe.masks(ctx, det)[0].cpu().numpy()   # (C, D, H, W)
         det_valid = det.valid.cpu().numpy()
         det_cls = det.classes.cpu().numpy()
         det_scores = det.scores.cpu().numpy()

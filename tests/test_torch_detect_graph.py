@@ -18,14 +18,13 @@ import os
 import pytest
 import torch
 
-from rt3d_torch import config
+from rt3d_torch import config, tree
 from rt3d_torch.io import SyntheticSource
 from rt3d_torch.models import quant
 from rt3d_torch.models.yolo import Conv, QConv, cast_for_inference, load_weights
-from rt3d_torch.pipeline import step as step_mod
 from rt3d_torch.pipeline.presets import PRESETS
 from rt3d_torch.pipeline.step import build_pipeline, class_mask
-from rt3d_torch.runtime import trace
+from rt3d_torch.runtime import graphs, trace
 from tests.tiny import tiny_config
 
 H, W = 96, 160
@@ -96,20 +95,20 @@ def bit_equal(a, b) -> bool:
 
 
 class StandInGraph:
-    """`step._CapturedGraph` without a card: the capture runs `fn` on
-    copies of the inputs and keeps its outputs, a replay copies the new
-    inputs in, runs `fn` again and writes the results into those same
+    """`graphs.CapturedGraph` without a card: the capture runs `fn` on
+    copies of the argument tree and keeps its outputs, a replay copies the
+    new leaves in, runs `fn` again and writes the results into those same
     tensors."""
 
-    def __init__(self, fn, inputs, key):
+    def __init__(self, fn, args, key):
         self.key, self.fn = key, fn
-        self.inputs = [t.clone() for t in inputs]
-        self.outputs = fn(*self.inputs)
+        self.args = tree.map(torch.clone, args)
+        self.outputs = fn(*self.args)
 
-    def replay(self, inputs):
-        for mine, new in zip(self.inputs, inputs):
+    def replay(self, args):
+        for mine, new in zip(tree.leaves(self.args), tree.leaves(args), strict=True):
             mine.copy_(new)
-        for kept, new in zip(tensors(self.outputs), tensors(self.fn(*self.inputs))):
+        for kept, new in zip(tensors(self.outputs), tensors(self.fn(*self.args))):
             kept.copy_(new)
         return self.outputs
 
@@ -117,8 +116,8 @@ class StandInGraph:
 @pytest.fixture
 def graph_path(monkeypatch):
     """The graph path taken on the CPU, through `StandInGraph`."""
-    monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: not torch.is_grad_enabled())
-    monkeypatch.setattr(step_mod, "_CapturedGraph", StandInGraph)
+    monkeypatch.setattr(graphs, "replayable", lambda device: not torch.is_grad_enabled())
+    monkeypatch.setattr(graphs, "CapturedGraph", StandInGraph)
 
 
 def old_class_mask(num_classes, class_filter):

@@ -24,12 +24,11 @@ import pytest
 import torch
 
 from rt3d_torch.models.quant import quantize_pipeline, synth_calib_batches
-from rt3d_torch.pipeline import step as step_mod
 from rt3d_torch.pipeline.presets import (
     CALIB_FRAMES, preset_config, preset_source, preset_weights, synthetic_preset,
 )
 from rt3d_torch.pipeline.step import build_pipeline
-from rt3d_torch.runtime import trace
+from rt3d_torch.runtime import graphs, trace
 
 pytestmark = pytest.mark.cuda
 
@@ -123,8 +122,7 @@ def test_graph_steps_equal_eager_steps(card, preset, monkeypatch):
         {"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM,
          "track_graph_replays": 1, "track_graph_captures": 0}] * (FRAMES - 1)
     assert all([s.name for s in r["spans"]].count("detect.graph") == 1 for r in recs)
-    monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: False)
-    monkeypatch.setattr(step_mod, "_track_graph_eligible", lambda *a: False)
+    monkeypatch.setattr(graphs, "replayable", lambda device: False)
     eager = run()
     assert bit_equal(graph, eager)
 

@@ -368,20 +368,26 @@ def test_sharded_step_at_world_one_runs_sam(pipe, frame, stepped):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_sam_pipeline_hands_the_frames_to_detect(pipe, frame):
-    """With SAM, `preprocess` gives the detector's input and the frames;
-    `detect` refuses the detector's input alone; calibration batches are
-    the detector's input."""
+def test_sam_pipeline_hands_the_frames_to_detect(pipe, ref, frame):
+    """With SAM as on the proto path, `preprocess` gives the detector's
+    input alone, and calibration batches are that input; the frames go to
+    the mask model, whose context is SAM's encoder's embeddings of them (the
+    protos on the proto path)."""
     from rt3d_torch.models import quant
 
     rgb = torch.from_numpy(frame[0])
     x = pipe.preprocess(rgb)
-    assert x.rgb is rgb and x.images.shape == (2, 192, 256, 3)
-    with pytest.raises(TypeError, match="SamInput"):
-        pipe.detect(x.images)
+    proto = dataclasses.replace(pipe, sam=None)
+    assert isinstance(x, torch.Tensor) and x.shape == (2, 192, 256, 3)
+    assert torch.equal(proto.preprocess(rgb), x)
     src = SyntheticSource(num_cameras=2, num_frames=1, hw=(H, W), num_objects=2)
     (batch,) = quant.synth_calib_batches(pipe, src, (0,))
-    assert torch.equal(batch, x.images)
+    assert torch.equal(batch, x)
+    _, protos, _ = pipe.detect(x)
+    ctx = pipe.mask_model.context(rgb, protos)
+    assert torch.equal(ctx, pipe.sam.image_encoder(pipe.sam.preprocess(rgb)))
+    assert rel(ctx, ref.sam.image_encoder(ref.sam.preprocess(rgb))) < REL
+    assert proto.mask_model.context(rgb, protos) is protos
 
 
 def test_unknown_mask_model_is_refused():

@@ -218,11 +218,10 @@ def _assert_accumulators_match(acc, jacc, outs, pcfg):
 
 
 @pytest.mark.parametrize("change", ["accumulate", "botsort"])
-def test_unported_branches_raise(change):
-    """The two branches that raised before the 1 mm and tracker slice now
-    run and give the JAX package's step, two frames: workspace accumulation
-    on this config's 1 cm grid (the dedupe path feeds the accumulator), and
-    BoT-SORT with ReID and GMC. Track IDs, the accumulator's keys and the
+def test_accumulation_and_botsort_match_jax(change):
+    """Two frames of the JAX package's step: workspace accumulation on this
+    config's 1 cm grid (the dedupe path feeds the accumulator), and BoT-SORT
+    with ReID and GMC. Track IDs, the accumulator's keys and the
     published workspace exact (weights within 1e-6 relative, no weight in
     that band of the threshold), outside threshold ties: a voxel whose
     keep decision was a tie in some frame (`_assert_accumulators_match`)."""

@@ -24,9 +24,8 @@ from bench_port import spec
 from rt3d_torch import config
 from rt3d_torch.io import SyntheticSource
 from rt3d_torch.models.postprocess import Detections
-from rt3d_torch.pipeline import step as step_mod
 from rt3d_torch.pipeline.step import build_pipeline
-from rt3d_torch.runtime import trace
+from rt3d_torch.runtime import graphs, trace
 from rt3d_torch.tracking.bytetrack import bytetrack_init, bytetrack_step
 from tests.test_torch_detect_graph import StandInGraph
 from tests.tiny import tiny_config
@@ -183,12 +182,13 @@ def test_spans_nest_under_their_parents(runs):
 
 
 def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
-    """Detect's graph path, taken on the CPU through the stand-in for the
-    captured graph of `tests/test_torch_detect_graph.py`: the first traced
-    step captures and replays, the next only replay; the replay is the span
-    `detect.graph` under `YOLO11 Inference`, the capture a sync inside it."""
-    monkeypatch.setattr(step_mod, "_graph_eligible", lambda images: not torch.is_grad_enabled())
-    monkeypatch.setattr(step_mod, "_CapturedGraph", StandInGraph)
+    """Detect's and track's graph paths, taken on the CPU through the
+    stand-in for the captured graph of `tests/test_torch_detect_graph.py`:
+    the first traced step captures and replays each, the next only replay;
+    the replay is the span `detect.graph` under `YOLO11 Inference`, the
+    capture a sync inside it."""
+    monkeypatch.setattr(graphs, "replayable", lambda device: not torch.is_grad_enabled())
+    monkeypatch.setattr(graphs, "CapturedGraph", StandInGraph)
     pipe = build_pipeline(small_config(src.cameras()), weights=WEIGHTS, device="cpu")
     trace.enable()
     state, calib = pipe.init_state(), pipe.calib()
@@ -196,9 +196,12 @@ def test_traced_graph_steps_count_and_time_the_replay(src, frames, monkeypatch):
         state, _ = pipe.step(state, rgb, depth, calib)
     recs = trace.records()
     assert [r["counts"] for r in recs] == [
-        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM, **NO_TRACK_GRAPH}
-    ] + [{"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM, **NO_TRACK_GRAPH}] * 2
-    assert [r["host_syncs"].get("step.detect_capture", 0) for r in recs] == [1, 0, 0]
+        {"detect_graph_replays": 1, "detect_graph_captures": 1, **NO_SAM,
+         "track_graph_replays": 1, "track_graph_captures": 1}] + [
+        {"detect_graph_replays": 1, "detect_graph_captures": 0, **NO_SAM,
+         "track_graph_replays": 1, "track_graph_captures": 0}] * 2
+    for site in ("step.detect_capture", "step.track_capture"):
+        assert [r["host_syncs"].get(site, 0) for r in recs] == [1, 0, 0]
     for rec in recs:
         spans = rec["spans"]
         graph = [s for s in spans if s.name == "detect.graph"]

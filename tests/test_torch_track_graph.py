@@ -22,12 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from rt3d_torch import tree
 from rt3d_torch.config import Config
 from rt3d_torch.models.postprocess import Detections
-from rt3d_torch.pipeline import step as step_mod
 from rt3d_torch.pipeline.step import Pipeline
-from rt3d_torch.runtime import trace
-from rt3d_torch.tracking.bytetrack import EMPTY, LOST, TRACKED, TrackerState
+from rt3d_torch.runtime import graphs, trace
+from rt3d_torch.tracking.bytetrack import EMPTY, LOST, TRACKED
 
 D = 20            # detection slots a camera
 OBJECTS = 8       # objects a camera
@@ -126,26 +126,27 @@ def bit_equal(a, b) -> bool:
 
 
 def graph_cameras(graph) -> int:
-    """How many cameras' states a track graph takes: its inputs are every
-    camera's state fields, then four of the detections."""
-    return (len(graph.inputs) - 4) // len(dataclasses.fields(TrackerState))
+    """How many cameras' states a track graph takes: its arguments are the
+    cameras' tracker states, then the detections."""
+    trackers, _ = graph.args
+    return len(trackers)
 
 
 class StandInGraph:
-    """`step._CapturedGraph` without a card: the capture runs `fn` on
-    copies of the inputs and keeps its outputs, a replay copies the new
-    inputs in, runs `fn` again and writes the results into those same
+    """`graphs.CapturedGraph` without a card: the capture runs `fn` on
+    copies of the argument tree and keeps its outputs, a replay copies the
+    new leaves in, runs `fn` again and writes the results into those same
     tensors."""
 
-    def __init__(self, fn, inputs, key):
+    def __init__(self, fn, args, key):
         self.key, self.fn = key, fn
-        self.inputs = [t.clone() for t in inputs]
-        self.outputs = fn(*self.inputs)
+        self.args = tree.map(torch.clone, args)
+        self.outputs = fn(*self.args)
 
-    def replay(self, inputs):
-        for mine, new in zip(self.inputs, inputs):
+    def replay(self, args):
+        for mine, new in zip(tree.leaves(self.args), tree.leaves(args), strict=True):
             mine.copy_(new)
-        for kept, new in zip(self.outputs, self.fn(*self.inputs)):
+        for kept, new in zip(tree.leaves(self.outputs), tree.leaves(self.fn(*self.args))):
             kept.copy_(new)
         return self.outputs
 
@@ -188,7 +189,7 @@ def test_graph_rule(case):
     emb = torch.zeros((c, D, 64)) if pipe._use_reid else None
     warps = [torch.zeros((2, 3))] * c if pipe._use_gmc else [None] * c
     with torch.set_grad_enabled(grad):
-        assert step_mod._track_graph_eligible(pipe, torch.device(device), emb, warps) is want
+        assert pipe._track_replays(torch.device(device), emb, warps) is want
 
 
 def test_cpu_track_is_eager_and_counts_no_replay():
@@ -216,9 +217,8 @@ def test_graph_path_is_bit_equal_and_hands_out_its_own_states(monkeypatch):
     against the eager path (autograd on): every state field and the ids
     bit for bit, one capture; what frame t handed out is unchanged after
     the later replays. A third camera captures again."""
-    monkeypatch.setattr(step_mod, "_track_graph_eligible",
-                        lambda pipe, device, emb, warps: not torch.is_grad_enabled())
-    monkeypatch.setattr(step_mod, "_CapturedGraph", StandInGraph)
+    monkeypatch.setattr(graphs, "replayable", lambda device: not torch.is_grad_enabled())
+    monkeypatch.setattr(graphs, "CapturedGraph", StandInGraph)
     pipe = track_pipeline()
     dets = scene(2, 12)
     eager, graph = pipe.init_state(), pipe.init_state()
