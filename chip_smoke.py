@@ -536,6 +536,127 @@ def check_kernels(torch, gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 3b: SAM's encoder attention on the step's own shapes
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+SAM_FRAMES = 3
+
+
+def sam_attention_bound(qkv, window, rows):
+    """The least time of one `sam_attention` call: q.k and p.v (4 N^2 x 80
+    a window and head) and the relative terms (2 x 80 x (wh + ww) a query
+    and head) at the dense bf16 rate, against qkv read once, the output
+    written once and the `rows` table rows read (both tables), at 3.35 TB/s."""
+    b, hp, wp, c3 = qkv.shape
+    wh, ww = window
+    n, wins, heads, hd = wh * ww, b * (hp // wh) * (wp // ww), c3 // 3 // 80, 80
+    flops = wins * heads * (4 * n * n * hd + 2 * n * hd * (wh + ww))
+    nbytes = 2 * (b * hp * wp * c3 * 4 // 3 + rows * hd)
+    to, tb = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(to, tb), bound_by="operations" if to >= tb else "bytes",
+                bytes_bound_ms=tb, ops_bound_ms=to, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def library_attention(torch, qkv, heads, window, rel_h, rel_w):
+    """The chain the kernel replaced, up to its fused attention: q, k and v
+    copied out per window, the (B', heads, N, N) relative position bias
+    materialized. Returns a call of `scaled_dot_product_attention` on them
+    (the yardstick, timed alone; the port never calls it)."""
+    b, hp, wp, c3 = qkv.shape
+    wh, ww = window
+    t = qkv.view(b, hp // wh, wh, wp // ww, ww, 3, heads, -1).permute(5, 0, 1, 3, 6, 2, 4, 7)
+    q, k, v = t.reshape(3, -1, heads, wh * ww, c3 // 3 // heads).unbind(0)
+    ih, iw = torch.arange(wh, device=qkv.device), torch.arange(ww, device=qkv.device)
+    r_h = rel_h[(ih[:, None] - ih[None, :]) + (wh - 1)]
+    r_w = rel_w[(iw[:, None] - iw[None, :]) + (ww - 1)]
+    r_q = q.reshape(q.shape[0], heads, wh, ww, -1)
+    bias = (torch.einsum("bnhwc,hkc->bnhwk", r_q, r_h)[..., :, None]
+            + torch.einsum("bnhwc,wkc->bnhwk", r_q, r_w)[..., None, :]
+            ).reshape(q.shape[0], heads, wh * ww, wh * ww)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+def check_sam_attention(torch):
+    """ViT-H's encoder (bf16, random weights from the benchmark's seed) on
+    two 1024 x 1024 images: one kernel launch a block (32), no library
+    attention; then the kernel on the encoder's own inputs of a windowed
+    block (0) and a global block (7), each against its plain version and
+    timed beside it, its bound and the library's fused attention on the
+    materialized bias; and the launches on a SAM step's path: the 2cam
+    preset with SAM as its mask model, `SAM_FRAMES` frames."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from rt3d_torch.models import sam as P
+    from rt3d_torch.pipeline.presets import preset_config, preset_source, preset_weights
+    from rt3d_torch.pipeline.step import build_pipeline
+
+    sam = P.build_sam("sam_vit_h", torch.bfloat16, "cuda", seed=20304)
+    x = torch.randn((2, 3, 1024, 1024), generator=torch.Generator(device="cuda").manual_seed(9),
+                    device="cuda").to(torch.bfloat16)
+    sdpa = F.scaled_dot_product_attention
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("SAM's encoder called scaled_dot_product_attention")
+
+    F.scaled_dot_product_attention = refuse
+    try:
+        before = sam_launches()
+        with recording(P, "sam_attention") as calls:
+            sam.image_encoder(x)
+        torch.cuda.synchronize()
+        per_call = sam_launches() - before
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    check(per_call == 32, f"SAM's encoder launched sam_attention {per_call} times, expected 32")
+    res = dict(name="sam_attention", source="rt3d_torch/csrc/sam_attention.cu", replaces=None,
+               encoder_launches=per_call)
+    for label, blk in (("windowed", 0), ("global", 7)):
+        qkv, heads, window, rel_h, rel_w = calls[blk]
+        got = P.sam_attention(qkv, heads, window, rel_h, rel_w)
+        want = P.sam_attention(qkv, heads, window, rel_h, rel_w, plain=True)
+        err = float((got.double() - want.double()).norm() / want.double().norm())
+        check(err < 1e-2, f"sam_attention ({label}) differs from its plain version: {err:.3e}")
+        res[label] = dict(
+            shape=list(qkv.shape), window=list(window), table_rows=rel_h.shape[0],
+            rel_l2_err=err,
+            ms=time_ms(torch, lambda: P.sam_attention(qkv, heads, window, rel_h, rel_w)),
+            plain_ms=time_ms(torch, lambda: P.sam_attention(qkv, heads, window, rel_h, rel_w,
+                                                            plain=True)),
+            library_ms=time_ms(torch, library_attention(torch, qkv, heads, window, rel_h, rel_w)),
+            **sam_attention_bound(qkv, window, 2 * window[0] - 1 + 2 * window[1] - 1))
+    del calls, sam
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    src = preset_source("2cam", SAM_FRAMES)
+    cfg = preset_config("2cam", src)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, mask_model="sam_vit_h"))
+    pipe = build_pipeline(cfg, weights=preset_weights("2cam"), device="cuda")
+    state, calib = pipe.init_state(), pipe.calib()
+    steps = []
+    for i in range(SAM_FRAMES):
+        pkt = src.get(i)
+        before = sam_launches()
+        state, _ = pipe.step(state, torch.from_numpy(pkt.rgb).cuda(),
+                             torch.from_numpy(pkt.depth).cuda(), calib)
+        steps.append(sam_launches() - before)
+    torch.cuda.synchronize()
+    check(steps == [32] * SAM_FRAMES, f"the SAM step launched sam_attention {steps} times")
+    res["launches_by_path"] = {"sam_encoder": per_call, "sam_2cam": sum(steps)}
+    return res
+
+
+def sam_launches():
+    from rt3d_torch import kernels
+
+    return kernels.LAUNCHES["sam_attention"]
+
+
 # the cases of the kernels' whole domain: K3 on the worst-case slots and K5
 # on a 4096-row cloud above the register path's k = 32 (up to k = rows), K1
 # and K2 on the 720 x 1280 grids at windows wider than 4 x 6
@@ -2136,6 +2257,17 @@ def main() -> int:
                 f"{c['library_ms']}, bound {fmt_bound(c)}, bit for bit")
     phase("kernels", t)
 
+    # 3b. SAM's encoder attention
+    t = time.perf_counter()
+    sam_row = check_sam_attention(torch)
+    for label in ("windowed", "global"):
+        r = sam_row[label]
+        log(f"  sam_attention {label} {tuple(r['shape'])} in {tuple(r['window'])}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (sdpa on the bias) "
+            f"{r['library_ms']:.4f} ms, bound {fmt_bound(r)}, relative L2 {r['rel_l2_err']:.3e}")
+    log(f"  sam_attention launches: {json.dumps(sam_row['launches_by_path'])}")
+    phase("sam attention", t)
+
     # 4-5. the default main path, then its plain run
     none = {"window_dedupe": 0, "window_prev_or": 0, "sor_knn_slots": 0,
             "min_sqdist": 0, "sor_knn": 0, "sor_knn_slots_large_k": 0, "sor_knn_large_k": 0}
@@ -2319,6 +2451,7 @@ def main() -> int:
                 p: n[f"{r['name']}_large_k"] for p, n in launches.items()}}
                if "large_k" in r else {}),
             **({"wide_window": r["wide_window"]} if "wide_window" in r else {})))
+    out_rows.append(dict(sam_row, route="cuda", launch_floor_ms=floor_ms))
     log(json.dumps({"presets": {name: {k: r[k] for k in ("steady_ms", "fps", "peak_mib",
                                                           "plain_ms")}
                                 for name, r in runs.items()},

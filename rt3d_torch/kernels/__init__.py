@@ -22,6 +22,7 @@ LAUNCHES: dict[str, int] = {
     "sor_knn_slots_large_k": 0,  # K3 launches at k > 32 (radix select)
     "sor_knn_large_k": 0,        # K5 launches at k > 32 (radix select)
     "greedy_match": 0,           # the trackers' greedy matching (no TPU kernel)
+    "sam_attention": 0,          # SAM's encoder attention, one a block (no TPU kernel)
 }
 
 

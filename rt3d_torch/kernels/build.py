@@ -41,6 +41,7 @@ _SIGNATURES = {
     "rt3d_sor_knn": (_P, _P, _P, _P, _I, _I, _P),
     "rt3d_min_sqdist": (_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
     "rt3d_greedy_match": (_P, _I, _I, ctypes.c_float, _P, _P, _P),
+    "rt3d_sam_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
     "rt3d_noop": (_P,),
 }
 

@@ -9,9 +9,11 @@ Follows `segment_anything` (`build_sam.py`, `modeling/image_encoder.py`,
   16 (a 64 x 64 grid): most blocks attend in windows (the grid padded to a
   multiple of the window), the blocks of `global_attn_indexes` over the
   whole grid; every attention adds SAM's decomposed relative position terms
-  ``q . R_h`` and ``q . R_w`` to its logits, here as the additive bias of
-  `scaled_dot_product_attention`; exact GELU, LayerNorm eps 1e-6; then the
-  neck (conv 1x1, LayerNorm2d, conv 3x3, LayerNorm2d) to 256 channels;
+  ``q . R_h`` and ``q . R_w`` to its logits, here inside one kernel a
+  block (`sam_attention`) that reads q, k and v from the qkv Linear's
+  output on the padded grid and writes into its layout; exact GELU,
+  LayerNorm eps 1e-6; then the neck (conv 1x1, LayerNorm2d, conv 3x3,
+  LayerNorm2d) to 256 channels;
 * the prompt encoder, box prompts only: the random-Fourier encoding of the
   two corners (+0.5, the pixel centre) plus `point_embeddings[2]` and
   `[3]`; `no_mask_embed` as the dense embedding. The mask-input branch
@@ -46,12 +48,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from rt3d_torch import kernels
 from rt3d_torch.geometry.ops import scalar_like
 from rt3d_torch.models.postprocess import Detections, in_boxes
 from rt3d_torch.runtime import trace
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
+# the head dim that the attention kernel takes (ViT-B, -L and -H: 64, 64
+# and 80 wide heads; -H's is the one run here)
+SAM_KERNEL_HEAD_DIM = 80
 
 
 @dataclass(frozen=True)
@@ -155,29 +161,83 @@ class MLP(nn.Module):
 # -- the image encoder ------------------------------------------------------------
 
 
-def rel_pos_bias(q: torch.Tensor, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor,
-                 hw: Tuple[int, int]) -> torch.Tensor:
-    """SAM's decomposed relative position terms (`add_decomposed_rel_pos`)
-    as an additive attention bias: q (B, heads, H*W, hd), unscaled ->
-    (B, heads, H*W, H*W) with ``bias[(h, w), (k, l)] = q . R_h[h - k] +
-    q . R_w[w - l]``. The tables have 2 * size - 1 rows at the size the
-    block was built for; at a smaller size the first 2 * size - 1 rows
-    are read."""
-    h, w = hw
-    b, nh, _, hd = q.shape
-    ih = torch.arange(h, device=q.device)
-    iw = torch.arange(w, device=q.device)
-    r_h = rel_pos_h[(ih[:, None] - ih[None, :]) + (h - 1)]  # (h, k, hd)
-    r_w = rel_pos_w[(iw[:, None] - iw[None, :]) + (w - 1)]  # (w, l, hd)
-    r_q = q.reshape(b, nh, h, w, hd)
-    rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, r_h)
-    rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, r_w)
-    return (rel_h[..., :, None] + rel_w[..., None, :]).reshape(b, nh, h * w, h * w)
+def sam_attention_plain(qkv: torch.Tensor, num_heads: int, window: Tuple[int, int],
+                        rel_h: Optional[torch.Tensor] = None,
+                        rel_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of `sam_attention`: the same windows, terms,
+    softmax and products, in float32, and the result in `qkv`'s dtype."""
+    b, hp, wp, c3 = qkv.shape
+    wh, ww = window
+    nh, nw = hp // wh, wp // ww
+    hd = c3 // 3 // num_heads
+    # (3, B * windows * heads, wh * ww, hd): each window's tokens row by row
+    t = qkv.view(b, nh, wh, nw, ww, 3, num_heads, hd).permute(5, 0, 1, 3, 6, 2, 4, 7)
+    q, k, v = t.reshape(3, -1, wh * ww, hd).float().unbind(0)
+    logits = (q @ k.transpose(1, 2)) * hd ** -0.5
+    if rel_h is not None:
+        ih = torch.arange(wh, device=qkv.device)
+        iw = torch.arange(ww, device=qkv.device)
+        r_h = rel_h[(ih[:, None] - ih[None, :]) + (wh - 1)].float()  # (wh, wh, hd)
+        r_w = rel_w[(iw[:, None] - iw[None, :]) + (ww - 1)].float()  # (ww, ww, hd)
+        r_q = q.view(-1, wh, ww, hd)
+        th = torch.einsum("nyxc,ykc->nyxk", r_q, r_h)
+        tw = torch.einsum("nyxc,xkc->nyxk", r_q, r_w)
+        logits = (logits.view(-1, wh, ww, wh, ww) + th[..., :, None] + tw[..., None, :]
+                  ).view(-1, wh * ww, wh * ww)
+    out = logits.softmax(-1) @ v
+    out = out.view(b, nh, nw, num_heads, wh, ww, hd).permute(0, 1, 4, 2, 5, 3, 6)
+    return out.reshape(b, hp, wp, num_heads * hd).to(qkv.dtype)
+
+
+def sam_attention(qkv: torch.Tensor, num_heads: int, window: Tuple[int, int],
+                  rel_h: Optional[torch.Tensor] = None, rel_w: Optional[torch.Tensor] = None,
+                  plain: bool = False) -> torch.Tensor:
+    """SAM's attention with decomposed relative positions in windows of
+    ``window = (wh, ww)`` tokens over a (B, Hp, Wp) grid; a global block is
+    one window of the whole grid. qkv (B, Hp, Wp, 3 * C), the qkv Linear's
+    output on the grid (zero-padded to whole windows), q, k and v of each
+    token and head at ``[..., part * C + head * hd:][:hd]``; rel_h and rel_w
+    the tables (their first 2 wh - 1 and 2 ww - 1 rows are read), or None
+    for no relative terms -> (B, Hp, Wp, C): for each window and head
+    ``softmax(scale q.k + q.R_h[row(q) - row(k) + wh - 1] + q.R_w[col(q) -
+    col(k) + ww - 1]) v``, with q unscaled in the terms.
+
+    On the card the kernel computes it (`rt3d_torch/csrc/sam_attention.cu`,
+    `LAUNCHES["sam_attention"]`): bf16, contiguous, head dim 80, window
+    sides up to 64 and an even width; anything else raises. A CPU tensor,
+    or ``plain=True``, takes `sam_attention_plain`."""
+    if not kernels.use_kernel(qkv, plain):
+        return sam_attention_plain(qkv, num_heads, window, rel_h, rel_w)
+    b, hp, wp, _ = qkv.shape
+    wh, ww = window
+    kernels.check(qkv, torch.bfloat16, (-1, -1, -1, 3 * num_heads * SAM_KERNEL_HEAD_DIM),
+                  "sam_attention qkv")
+    if not (0 < wh <= 64 and 0 < ww <= 64 and ww % 2 == 0 and hp % wh == 0 and wp % ww == 0):
+        raise ValueError(f"sam_attention: windows of {wh} x {ww} over a {hp} x {wp} grid; the "
+                         "kernel takes sides up to 64 that divide the grid, the width even")
+    if (rel_h is None) != (rel_w is None):
+        raise ValueError("sam_attention: give both relative position tables or neither")
+    tables = []
+    for name, tab, side in (("rel_h", rel_h, wh), ("rel_w", rel_w, ww)):
+        if tab is not None:
+            kernels.check(tab, torch.bfloat16, (-1, SAM_KERNEL_HEAD_DIM), f"sam_attention {name}")
+            if tab.shape[0] < 2 * side - 1:
+                raise ValueError(f"sam_attention {name}: {tab.shape[0]} rows, a window side of "
+                                 f"{side} reads {2 * side - 1}")
+        tables.append(None if tab is None else tab.data_ptr())
+    if any(p % 16 for p in [qkv.data_ptr()] + [p for p in tables if p is not None]):
+        raise ValueError("sam_attention: the kernel reads 16-byte aligned rows")
+    out = torch.empty((b, hp, wp, num_heads * SAM_KERNEL_HEAD_DIM), dtype=qkv.dtype,
+                      device=qkv.device)
+    kernels.launch("sam_attention", "rt3d_sam_attention", qkv.data_ptr(), *tables,
+                   out.data_ptr(), b, hp, wp, num_heads, wh, ww,
+                   SAM_KERNEL_HEAD_DIM ** -0.5)
+    return out
 
 
 class Attention(nn.Module):
     """Multi-head self-attention over a (B, H, W, C) grid with SAM's
-    relative position terms (`use_rel_pos`)."""
+    relative position terms (`use_rel_pos`), in windows of the grid."""
 
     def __init__(self, dim: int, num_heads: int, input_size: Tuple[int, int]):
         super().__init__()
@@ -189,39 +249,17 @@ class Attention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, _ = x.shape
-        qkv = self.qkv(x).reshape(b, h * w, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv.unbind(0)
-        bias = rel_pos_bias(q, self.rel_pos_h, self.rel_pos_w, (h, w)) \
-            if self.use_rel_pos else None
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-        return self.proj(out.transpose(1, 2).reshape(b, h, w, -1))
-
-
-def window_partition(x: torch.Tensor, ws: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    """(B, H, W, C) -> (B * windows, ws, ws, C), zero-padded to multiples
-    of `ws`; and the padded (Hp, Wp)."""
-    b, h, w, c = x.shape
-    ph, pw = (ws - h % ws) % ws, (ws - w % ws) % ws
-    if ph or pw:
-        x = F.pad(x, (0, 0, 0, pw, 0, ph))
-    hp, wp = h + ph, w + pw
-    x = x.view(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, ws, ws, c), (hp, wp)
-
-
-def window_unpartition(win: torch.Tensor, ws: int, pad_hw: Tuple[int, int],
-                       hw: Tuple[int, int]) -> torch.Tensor:
-    hp, wp = pad_hw
-    h, w = hw
-    b = win.shape[0] // (hp * wp // ws // ws)
-    x = win.view(b, hp // ws, wp // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, hp, wp, -1)[:, :h, :w, :]
+    def forward(self, x: torch.Tensor, window: Tuple[int, int], plain: bool = False
+                ) -> torch.Tensor:
+        """x (B, Hp, Wp, C), whole windows of `window` -> (B, Hp, Wp, C)."""
+        rel = (self.rel_pos_h, self.rel_pos_w) if self.use_rel_pos else (None, None)
+        return self.proj(sam_attention(self.qkv(x), self.num_heads, window, *rel, plain=plain))
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block; `window_size` 0 attends globally."""
+    """Pre-norm transformer block; `window_size` 0 attends globally. A
+    windowed block zero-pads the grid to whole windows, runs its attention
+    (qkv and proj included) on the padded grid, and crops."""
 
     def __init__(self, s: SamSizes, window_size: int):
         super().__init__()
@@ -232,16 +270,16 @@ class Block(nn.Module):
         self.mlp = MLPBlock(s.embed_dim, s.mlp_dim)
         self.window_size = window_size
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         shortcut = x
         x = self.norm1(x)
-        if self.window_size > 0:
-            h, w = x.shape[1], x.shape[2]
-            x, pad_hw = window_partition(x, self.window_size)
-            x = window_unpartition(self.attn(x), self.window_size, pad_hw, (h, w))
-        else:
-            x = self.attn(x)
-        x = shortcut + x
+        h, w = x.shape[1], x.shape[2]
+        ws = self.window_size
+        if ws > 0:
+            ph, pw = (ws - h % ws) % ws, (ws - w % ws) % ws
+            if ph or pw:
+                x = F.pad(x, (0, 0, 0, pw, 0, ph))
+        x = shortcut + self.attn(x, (ws, ws) if ws > 0 else (h, w), plain)[:, :h, :w]
         return x + self.mlp(self.norm2(x))
 
 
@@ -251,7 +289,9 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, s.embed_dim, s.patch_size, stride=s.patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(x).permute(0, 2, 3, 1)
+        """(B, H, W, C), contiguous: the blocks' LayerNorms, residual adds
+        and Linears then read it, and what they make, without copies."""
+        return self.proj(x).permute(0, 2, 3, 1).contiguous()
 
 
 class ImageEncoderViT(nn.Module):
@@ -267,11 +307,12 @@ class ImageEncoderViT(nn.Module):
             nn.Conv2d(s.prompt_embed_dim, s.prompt_embed_dim, 3, padding=1, bias=False),
             LayerNorm2d(s.prompt_embed_dim, s.layer_norm_eps))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, S, S) normalised and padded -> (B, 256, S/16, S/16)."""
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """(B, 3, S, S) normalised and padded -> (B, 256, S/16, S/16);
+        ``plain=True`` takes the plain attention on the card too."""
         x = self.patch_embed(x) + self.pos_embed
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, plain)
         return self.neck(x.permute(0, 3, 1, 2))
 
 
@@ -498,10 +539,12 @@ class Sam(nn.Module):
 class SamMasks:
     """SAM as the step's mask model (see `postprocess.ProtoMasks`): it
     decodes every box slot, valid or not, at a fixed shape, then cuts each
-    mask to its box and its slot's validity."""
+    mask to its box and its slot's validity. ``plain=True`` runs the
+    encoder's attention in its plain version (`Pipeline.plain_kernels`)."""
 
-    def __init__(self, sam: Sam, src_hw: Tuple[int, int], resize_dtype: torch.dtype):
-        self.sam, self.src_hw, self.resize_dtype = sam, src_hw, resize_dtype
+    def __init__(self, sam: Sam, src_hw: Tuple[int, int], resize_dtype: torch.dtype,
+                 plain: bool = False):
+        self.sam, self.src_hw, self.resize_dtype, self.plain = sam, src_hw, resize_dtype, plain
 
     def context(self, rgb: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
         """(C, 256, 64, 64) embeddings, the cameras as one batch: SAM's
@@ -509,7 +552,7 @@ class SamMasks:
         with trace.span("sam.preprocess"):
             x = self.sam.preprocess(rgb)
         with trace.device_span("sam.encoder", x.device):
-            emb = self.sam.image_encoder(x)
+            emb = self.sam.image_encoder(x, self.plain)
         trace.count("sam_encoder_images", x.shape[0])
         return emb
 

@@ -184,7 +184,8 @@ class Pipeline:
         cam = self.cfg.rig.cameras[0].intrinsics
         src_hw, rdt = (cam.height, cam.width), _DTYPES[m.mask_resize_dtype]
         self.mask_model = (ProtoMasks(letterbox_params(src_hw, m.input_hw), rdt)
-                           if self.sam is None else SamMasks(self.sam, src_hw, rdt))
+                           if self.sam is None
+                           else SamMasks(self.sam, src_hw, rdt, self.plain_kernels))
 
     @property
     def _use_reid(self) -> bool:
