@@ -12,6 +12,12 @@ on the same frames.
 * track: the reference's trackers, fed the program's detections, from the
   state before the frame, give track IDs and a tracker state, each equal to
   the program's.
+* a mask model with state (the reference's `PipelineState.mask_state` not
+  None): its reference, fed the program's detections, track IDs, tracker
+  state after the frame and mask state before it, gives masks and a mask
+  state, held to the program's by `mask_state_int_diff` (integer and bool
+  elements that differ) and `mask_state_rel` (the largest relative L2
+  distance of a float leaf).
 * fuse (K3), workspace (K1), subtract (K4) and accumulate: the reference
   fuses the program's per-camera objects and builds, subtracts and
   accumulates the workspace from the depth and the program's fused
@@ -20,22 +26,26 @@ on the same frames.
 Stages after detect read the program's outputs of the stage before only to
 judge them, as a served model's tokens are read. The reference follows the
 program step by step: each compared frame starts from the program's state
-before it (trackers, accumulator), so that a frame deep in the window needs
-no replay of it all. The start is checked on its own (frame 0 starts from
-the reference's own initial state), and so is every state the step hands
-on (the tracker and accumulator state after each compared frame).
+before it (trackers, accumulator, mask state), so that a frame deep in the
+window needs no replay of it all. The start is checked on its own (frame 0
+starts from the reference's own initial state), and so is every state the
+step hands on (the tracker, accumulator and mask state after each compared
+frame).
 
 Voxels are compared as sets of integer lattice keys (round(p / voxel)).
 
 The reference pipeline is the configuration's architecture's
 (`arch/<name>.py`, `reference_pipeline`); `ReferencePipeline` below is
 what the stages call on it. An architecture may add numbers of its own
-(`ExtraNumbers`), which join those that a cell's limits may name.
+(`ExtraNumbers`), which join those that a cell's limits may name. The
+dataclasses of the reference's initial mask state are mapped from the
+program's classes of the same name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import statistics
 from typing import Any, Dict, List, Protocol, Tuple
 
@@ -45,6 +55,9 @@ IOU_PAIR = 0.5
 # relative L2 distance from the reference's mask coefficients beyond which a
 # paired detection's coefficients count as off: about twice the bf16 median
 COEFF_OFF = 0.01
+# `mask_state_rel` of a float leaf that cannot be compared (a gap that is not
+# finite, or another shape): the largest float32
+STATE_REL_UNCOMPARABLE = 3.4028234663852886e38
 
 
 def _iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -104,14 +117,84 @@ def pair_detections(p, r, c: int) -> List[Tuple[int, int]]:
 
 def to_reference(obj, classes: Dict[str, type]):
     """The program's dataclasses as the reference's (by class name),
-    tensors cloned."""
+    tensors cloned in their own dtype, None kept. A field that the
+    reference's class has and the program's object lacks takes the
+    reference's default; a field that the program has and the reference's
+    class lacks is an error."""
+    if obj is None:
+        return None
     if isinstance(obj, torch.Tensor):
         return obj.clone()
     if isinstance(obj, tuple):
         return tuple(to_reference(o, classes) for o in obj)
-    cls = classes[type(obj).__name__]
+    name = type(obj).__name__
+    if name not in classes or not dataclasses.is_dataclass(obj):
+        raise ValueError(f"the reference has no class for the program's {name}")
+    cls = classes[name]
+    own = {f.name for f in dataclasses.fields(cls)}
+    extra = [f.name for f in dataclasses.fields(obj) if f.name not in own]
+    if extra:
+        raise ValueError(f"the program's {name} has fields that the reference's lacks: "
+                         f"{', '.join(extra)}")
     return cls(**{f.name: to_reference(getattr(obj, f.name), classes)
                   for f in dataclasses.fields(obj)})
+
+
+def _dataclass_types(tree) -> List[type]:
+    """The dataclass types in a tree of dataclasses and tuples."""
+    if isinstance(tree, tuple):
+        return [t for o in tree for t in _dataclass_types(o)]
+    if not dataclasses.is_dataclass(tree):
+        return []
+    return [type(tree)] + [t for f in dataclasses.fields(tree)
+                           for t in _dataclass_types(getattr(tree, f.name))]
+
+
+def reference_classes(mask_state=None) -> Dict[str, type]:
+    """The reference's state and output classes by name, to which
+    `to_reference` maps the program's: the check's own and the dataclasses
+    of the reference's initial mask state. Two classes of one name are an
+    error."""
+    from bench_port.reference.geometry.fusion import ObjectSet
+    from bench_port.reference.geometry.ops import PointBuffer
+    from bench_port.reference.geometry.voxel_sets import VoxelAccumulator
+    from bench_port.reference.models.postprocess import Detections
+    from bench_port.reference.pipeline.step import PipelineState
+    from bench_port.reference.tracking.bytetrack import TrackerState
+
+    every = list(dict.fromkeys((PipelineState, TrackerState, VoxelAccumulator, Detections,
+                                ObjectSet, PointBuffer, *_dataclass_types(mask_state))))
+    names = [c.__name__ for c in every]
+    twice = sorted({n for n in names if names.count(n) > 1})
+    if twice:
+        raise ValueError(f"state classes named twice: {twice}")
+    return dict(zip(names, every))
+
+
+def _state_gaps(a, b) -> Tuple[int, float]:
+    """(integer and bool elements that differ, the largest relative L2
+    distance of a float leaf) between the program's mask state `a` and the
+    reference's `b`, trees of tensors (dataclasses, tuples) of one shape;
+    float leaves are compared in float32, whatever their dtype."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        if a.is_floating_point() != b.is_floating_point():
+            return max(a.numel(), b.numel(), 1), 0.0
+        if not a.is_floating_point():
+            return _differ(a, b), 0.0
+        if a.shape != b.shape:
+            return 0, STATE_REL_UNCOMPARABLE
+        a, b = a.float(), b.float()
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-12))
+        return 0, rel if math.isfinite(rel) else STATE_REL_UNCOMPARABLE
+    if isinstance(a, tuple) and isinstance(b, tuple) and len(a) == len(b):
+        parts = [_state_gaps(x, y) for x, y in zip(a, b)]
+    elif dataclasses.is_dataclass(a) and type(a).__name__ == type(b).__name__:
+        parts = [_state_gaps(getattr(a, f.name), getattr(b, f.name))
+                 for f in dataclasses.fields(b)]
+    else:
+        raise ValueError(f"the program's mask state ({type(a).__name__}) is not shaped as "
+                         f"the reference's ({type(b).__name__})")
+    return sum(p[0] for p in parts), max((p[1] for p in parts), default=0.0)
 
 
 class Tally:
@@ -122,6 +205,7 @@ class Tally:
         self.box, self.score, self.coeff = [], [], []
         self.obj_diff = self.obj_ref = 0
         self.exact = dict(track_ids=0, tracker_state=0, fused=0, workspace=0, accum=0)
+        self.state_int, self.state_rel = None, 0.0
         self.frames = 0
 
     def detect(self, p, r) -> None:
@@ -142,6 +226,11 @@ class Tally:
                 self.obj_diff += _symdiff(a, b)
                 self.obj_ref += int(b.numel())
 
+    def mask_state(self, p_state, r_state) -> None:
+        gaps = _state_gaps(p_state, r_state)
+        self.state_int = (self.state_int or 0) + gaps[0]
+        self.state_rel = max(self.state_rel, gaps[1])
+
     def numbers(self) -> Dict[str, float]:
         med = lambda v: statistics.median(v) if v else 0.0  # noqa: E731
         out = dict(det_unpaired=self.det_unpaired,
@@ -150,6 +239,8 @@ class Tally:
                    coeff_off_share=sum(v > COEFF_OFF for v in self.coeff) / max(len(self.coeff), 1),
                    obj_voxels=self.obj_diff / max(self.obj_ref, 1))
         out.update({f"{k}_diff": v for k, v in self.exact.items()})
+        if self.state_int is not None:
+            out.update(mask_state_int_diff=self.state_int, mask_state_rel=self.state_rel)
         return out
 
 
@@ -157,7 +248,19 @@ class ReferencePipeline(Protocol):
     """What `judge_frame` calls on an architecture's plain reference. The
     state and outputs it takes and gives are dataclasses of tensors whose
     classes carry the names of the program's (`compare` maps one to the
-    other by name)."""
+    other by name).
+
+    A mask model with state across frames: the reference's `init_state`
+    gives its initial state in `PipelineState.mask_state` (None: no state,
+    and `masks` is called as for a model without), and the reference has
+    `masks_with_state`. Whether the mask model has state is the reference's
+    to say: the program's `PipelineState.mask_state` before and after every
+    compared frame must then be set. It is a dataclass of tensors, or a
+    tuple of them, that every step builds anew and never writes in place
+    (`drive.Recorder` keeps references to the states before and after each
+    sampled frame and copies nothing inside the window). Its float leaves
+    may be in the compute dtype: they reach the reference as they are, and
+    the reference reads them in float32."""
 
     cfg: Any       # the stated config; `cfg.pipeline.voxel_size` is read
     device: Any
@@ -173,6 +276,14 @@ class ReferencePipeline(Protocol):
 
     def track(self, state, det, det_emb=None, images=None) -> Tuple[Any, torch.Tensor]: ...
     def masks(self, ctx, det) -> torch.Tensor: ...
+
+    def masks_with_state(self, ctx, det, track_ids, trackers, mask_state
+                         ) -> Tuple[torch.Tensor, Any]:
+        """Optional; only a mask model with state has it: (masks, the mask
+        state after the frame), from the program's detections, its track
+        IDs, its tracker states after the frame (the reference's classes)
+        and its mask state before the frame (frame 0: `init_state`'s)."""
+
     def object_clouds(self, depth, masks, det, track_ids, calib) -> Tuple[Any, Any]: ...
     def fuse(self, per_cam) -> Tuple[Any, Any, Any]: ...
     def workspace_clouds(self, depth, calib) -> Tuple[Any, Any]: ...
@@ -185,9 +296,12 @@ class ExtraNumbers(Protocol):
     """An architecture's own compared numbers (`arch/<name>.py` may define
     a class `ExtraNumbers` of this shape): `add` once a compared frame,
     after the mask stage, with the reference, its mask context, its masks
-    of the program's detections and the program's outputs of the frame."""
+    of the program's detections and the program's outputs of the frame.
+    For a mask model with state, and only then, `add` also gets the mask
+    state before the frame (`mask_state`, as `masks_with_state` got it) as a
+    keyword argument; the program's track IDs are in `outputs`."""
 
-    def add(self, ref: ReferencePipeline, ctx, masks, outputs) -> None: ...
+    def add(self, ref: ReferencePipeline, ctx, masks, outputs, **state) -> None: ...
     def numbers(self) -> Dict[str, float]: ...
 
 
@@ -201,8 +315,9 @@ def reference_pipeline(arch, config: Dict, cameras, device, weights: str) -> Ref
 
 
 def judge_frame(ref: ReferencePipeline, tally: Tally, kept, rgb, depth, classes,
-                extra: ExtraNumbers = None) -> None:
-    """One compared frame, stage by stage."""
+                extra: ExtraNumbers = None, stateful: bool = False) -> None:
+    """One compared frame, stage by stage; `stateful`: the reference's mask
+    model has state."""
     from bench_port.reference.geometry.ops import PointBuffer
 
     p, calib = kept.outputs, ref.calib()
@@ -218,12 +333,24 @@ def judge_frame(ref: ReferencePipeline, tally: Tally, kept, rgb, depth, classes,
 
         r_state, r_ids = ref.track(state, p_det, det_emb=None, images=images)
         tally.exact["track_ids"] += _differ(p.track_ids, r_ids)
-        tally.exact["tracker_state"] += _differ(to_reference(kept.after.trackers, classes),
-                                                r_state.trackers)
+        p_trackers = to_reference(kept.after.trackers, classes)
+        tally.exact["tracker_state"] += _differ(p_trackers, r_state.trackers)
 
-        masks = ref.masks(ctx, p_det)
-        if extra is not None:
-            extra.add(ref, ctx, masks, p)
+        if not stateful:
+            masks = ref.masks(ctx, p_det)
+            if extra is not None:
+                extra.add(ref, ctx, masks, p)
+        else:
+            p_mask = to_reference(getattr(kept.after, "mask_state", None), classes)
+            if state.mask_state is None or p_mask is None:
+                raise ValueError(f"frame {kept.frame}: the program hands on no mask state "
+                                 f"{'into' if state.mask_state is None else 'out of'} it, "
+                                 "where the reference's mask model has state")
+            masks, r_mask = ref.masks_with_state(ctx, p_det, p.track_ids, p_trackers,
+                                                 state.mask_state)
+            tally.mask_state(p_mask, r_mask)
+            if extra is not None:
+                extra.add(ref, ctx, masks, p, mask_state=state.mask_state)
         r_objs, _ = ref.object_clouds(depth, masks, p_det, p.track_ids, calib)
         tally.objects(p.per_camera_objects, r_objs, p.detections.valid, voxel)
 
@@ -245,18 +372,11 @@ def compare(kept, frames_of, ref: ReferencePipeline, extra: ExtraNumbers = None
             ) -> Dict[str, float]:
     """Judge each kept frame (`frames_of(g)` gives its rgb and depth); the
     numbers of `extra` join the check's own."""
-    from bench_port.reference.geometry.fusion import ObjectSet
-    from bench_port.reference.geometry.ops import PointBuffer
-    from bench_port.reference.geometry.voxel_sets import VoxelAccumulator
-    from bench_port.reference.models.postprocess import Detections
-    from bench_port.reference.pipeline.step import PipelineState
-    from bench_port.reference.tracking.bytetrack import TrackerState
-
-    classes = {c.__name__: c for c in (PipelineState, TrackerState, VoxelAccumulator,
-                                       Detections, ObjectSet, PointBuffer)}
+    mask_state = ref.init_state().mask_state
+    classes = reference_classes(mask_state)
     tally = Tally()
     for k in kept:
-        judge_frame(ref, tally, k, *frames_of(k.frame), classes, extra)
+        judge_frame(ref, tally, k, *frames_of(k.frame), classes, extra, mask_state is not None)
     numbers = tally.numbers()
     if extra is not None:
         own = extra.numbers()

@@ -60,7 +60,18 @@ class Kept:
 
 class Recorder:
     """`on_frame` for the driver: done stamps, and the reservoir of `keep`
-    frames done before `close` (set when the window opens)."""
+    frames done before `close` (set when the window opens).
+
+    Each kept frame holds references to the driver's state before and after
+    it, and nothing is copied inside the window. That is sound only while
+    the program's step builds every state anew and never writes into one it
+    was given: the trackers and accumulator today, and a mask model's state
+    (`PipelineState.mask_state`, a dataclass of tensors or a tuple of them;
+    see `bench_port.check.ReferencePipeline`). It costs device memory: up to
+    `keep` + 1 frames, each with two states. A memory bank of SAM 2's size
+    (7 x 64 x 64 x 64 bf16, 3.7 MB an object) at 64 tracker slots on each
+    of two cameras is 470 MB a state, so 8 sampled frames and frame 0 keep
+    about 8.5 GB of banks, of the card's 80 GB."""
 
     def __init__(self, driver, source: ReplaySource, keep: int, seed: int):
         self.driver = driver

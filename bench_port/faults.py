@@ -82,8 +82,23 @@ def workspace_voxel_moved(pipe):
     return lambda: None
 
 
+def mask_state_frozen(pipe):
+    """The step hands on the mask state it was given, and is sound
+    otherwise. A program whose state holds no mask state is refused here:
+    the fault would change nothing."""
+    if getattr(pipe.init_state(), "mask_state", None) is None:
+        raise ValueError("mask_state_frozen: the program's PipelineState holds no mask state")
+    step = pipe.step
+
+    def f(state, rgb, depth, calib, stage=None):
+        new, out = step(state, rgb, depth, calib, stage=stage)
+        return dataclasses.replace(new, mask_state=state.mask_state), out
+    pipe.step = f
+    return lambda: None
+
+
 FAULTS = {f.__name__: f for f in (state_unchanged, half_the_cameras, detections_dropped,
-                                  k2_self_in_window, workspace_voxel_moved)}
+                                  k2_self_in_window, workspace_voxel_moved, mask_state_frozen)}
 
 
 def for_cell(cell):

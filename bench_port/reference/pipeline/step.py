@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, fields
-from typing import Callable, ContextManager, Optional, Sequence, Tuple
+from typing import Any, Callable, ContextManager, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,12 +91,16 @@ class CameraCalib:
 @dataclass
 class PipelineState:
     """All cross-frame state: one tracker state per camera, the previous
-    frame's grey images for GMC ((C, 1, 1) zeros when GMC is off) and the
-    workspace voxel accumulator (capacity 1 when accumulation is off)."""
+    frame's grey images for GMC ((C, 1, 1) zeros when GMC is off), the
+    workspace voxel accumulator (capacity 1 when accumulation is off) and
+    the mask model's state (None: the mask model keeps none; an
+    architecture whose mask model has state gives its initial state from
+    its reference's `init_state`)."""
 
     trackers: Tuple[TrackerState, ...]
     prev_gray: torch.Tensor
     accum: VoxelAccumulator
+    mask_state: Optional[Any] = None
 
 
 @dataclass
@@ -301,7 +305,8 @@ class Pipeline:
                          det_emb=None if emb is None else emb[c], gmc_warp=warps[c])
             new.append(ts)
             ids.append(i)
-        return (PipelineState(trackers=tuple(new), prev_gray=prev_gray, accum=state.accum),
+        return (PipelineState(trackers=tuple(new), prev_gray=prev_gray, accum=state.accum,
+                              mask_state=state.mask_state),
                 torch.stack(ids))
 
     def masks(self, protos: torch.Tensor, det: Detections) -> torch.Tensor:
@@ -417,7 +422,8 @@ class Pipeline:
         acc, ovf = accumulate_voxels(state.accum, ws_out.points, ws_out.valid, p.voxel_size,
                                      p.dedupe_bound_m, decay=p.accum_decay,
                                      obs_weight=p.accum_obs_weight)
-        state = PipelineState(trackers=state.trackers, prev_gray=state.prev_gray, accum=acc)
+        state = PipelineState(trackers=state.trackers, prev_gray=state.prev_gray, accum=acc,
+                              mask_state=state.mask_state)
         return (state, extract_accumulated(acc, p.voxel_size, p.dedupe_bound_m,
                                            min_weight=p.accum_min_weight), ovf)
 
